@@ -11,14 +11,19 @@ setup(
     version="0.1.0",
     description="TPU-native long-read validation of structural variants "
                 "(VaPoR-compatible)",
-    packages=find_packages(include=["vapor_tpu", "vapor_tpu.*"]),
+    packages=find_packages(include=["vapor_tpu", "vapor_tpu.*",
+                                    "vapor_tpu_torch", "vapor_tpu_torch.*"]),
     package_data={"vapor_tpu": ["native/*.cpp",
-                                "engine/autotune_tables/*.json"]},
+                                "engine/autotune_tables/*.json"],
+                  "vapor_tpu_torch": ["engine/kernels/csrc/*.cu",
+                                      "engine/kernels/csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy", "scipy", "matplotlib", "scikit-learn", "jax",
     ],
+    extras_require={"torch": ["torch"]},
     entry_points={
-        "console_scripts": ["vapor-tpu=vapor_tpu.cli:main"],
+        "console_scripts": ["vapor-tpu=vapor_tpu.cli:main",
+                            "vapor-tpu-torch=vapor_tpu_torch.cli:main"],
     },
 )

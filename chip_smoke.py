@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""On-card smoke run of vapor_tpu_torch: builds its CUDA kernels, holds
-each against its plain PyTorch version, scores a synthetic DEL/INV bed
-worklist through the CLI on the card, and checks the rows against the
-CPU and numpy-oracle runs.
+"""On-card smoke run of vapor_tpu_torch: builds its six CUDA kernels,
+holds each against its plain PyTorch version, scores a synthetic bed
+worklist (DEL, INV and tandem DUP) and a VCF worklist (DISDUP, DUP_INV
+and a duplication-bearing complex event) through the CLI on the card,
+and checks the output against the CPU and numpy-oracle runs.
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
 Phases, each fatal on failure: 1 build, 2 input, 3 kernel parity and
-timing, 4 end to end on cuda, 5 CPU and oracle cross-check, 6 kernel
-list.  The last line of stdout is
+timing, 4 end to end on cuda (bed, then vcf), 5 CPU and oracle
+cross-check, 6 kernel list.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -18,27 +19,37 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit): HBM
-# bytes/s, and the CUDA-core (non-tensor) rate, which bounds integer
-# compares from below (Hopper's INT32 pipe runs at half of it).
+# Peak rates of one H100 SXM at the 700 W limit: HBM bytes/s (NVIDIA data
+# sheet), and 32-bit integer operations/s, 132 SMs x 64 INT32 lanes x the
+# 1.98 GHz boost clock: a quarter of the sheet's 67 TFLOP/s FP32 rate,
+# which counts 128 lanes per SM and an FMA as two operations.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-# per-hit accumulations of each kernel, beside 2 strands x lanes
-# compares per eligible cell
-HIT_OPS = {"hist": 4, "left_hist": 1, "moment": 3, "moment2": 5}
-SIZES = (400, 3000, 9500)     # smallest, middle and largest event bodies
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# per-hit accumulations of each kernel, beside the compares: 2 per
+# eligible cell (lane 0 of both strands), and lanes - 1 more per hit
+HIT_OPS = {"hist": 4, "left_hist": 1, "kept_hist": 1, "moment": 3,
+           "moment2": 5, "rdd_moment": 5}
+SIZES = (400, 3000, 9500)     # smallest, middle and largest DEL/INV bodies
+DUP_SIZES = (400, 3000, 6000)  # smallest, middle and largest DUP bodies
 # where each kernel's Pallas counterpart reaches pl.pallas_call
 REPLACES = {
     "hist": "experiments/pallas_fused.py:268",
     "left_hist": "experiments/pallas_fused.py:420",
+    "kept_hist": "experiments/pallas_fused.py:509",
+    "rdd_moment": "experiments/pallas_fused.py:633",
     "moment": "experiments/pallas_fused.py:734",
     "moment2": "experiments/pallas_fused.py:851",
 }
+# the kernel each timed shape is reported at: the largest body, k = 10
+REPORT_AT = {"hist": SIZES[-1], "left_hist": SIZES[-1],
+             "moment": SIZES[-1], "moment2": SIZES[-1],
+             "kept_hist": DUP_SIZES[-1], "rdd_moment": DUP_SIZES[-1]}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -73,10 +84,12 @@ def _time_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 def _event_rows(fa, bam, event, mode: str):
-    """The reference-hap rows one main-path call of `mode` gets for this
-    event (largest read group): INV whole-event (m1b) rows have reads
-    through the whole event, DEL (del mode) rows reads across the left
-    breakpoint."""
+    """The rows one main-path call of `mode` gets for this event (largest
+    read group): INV whole-event (m1b) rows pair the reference hap with
+    reads through the whole event, DEL (del mode) rows with reads across
+    the left breakpoint, tandem-DUP (rdd) rows pair the alt hap (the body
+    twice, the larger of the two) with reads through s + 2 (e - s) +
+    flank."""
     import numpy as np
     from vapor_tpu_torch.engine.fused import FusedBackend
     from vapor_tpu_torch.grammar.letters import flank_length_calculate
@@ -85,8 +98,13 @@ def _event_rows(fa, bam, event, mode: str):
     from vapor_tpu_torch.engine.constants import bucket_for
     _, s, e = event
     flank = flank_length_calculate(["chrE", s, e])
-    hap = FastaFile(fa).fetch("chrE", s - flank, e + flank).upper()
-    end = e + flank if mode == "m1b" else s + flank
+    hap = FastaFile(fa).fetch("chrE", s - flank, e + flank)
+    if mode == "rdd":
+        hap = hap[:flank] + 2 * hap[flank:-flank] + hap[-flank:]
+    else:
+        hap = hap.upper()
+    end = {"m1b": e + flank, "del": s + flank,
+           "rdd": s + 2 * (e - s) + flank}[mode]
     reads = collect_event_reads(bam, "chrE", s - flank, end, flank, 20)
     be = FusedBackend("cpu")
     R, idxs = max(be._read_groups(reads), key=lambda g: len(g[1]))
@@ -103,45 +121,78 @@ def _bound(name: str, codes, outs, tables, hits: int):
     lanes = ch.shape[1]
     cells = sum(max(0, H - m) * max(0, min(rl - k, R - 1) + 1)
                 for m, rl in zip(ms.tolist(), rlens.tolist()))
-    ops = cells * 2 * lanes + hits * HIT_OPS[name]
+    ops = cells * 2 + hits * (lanes - 1 + HIT_OPS[name])
     nbytes = sum(t.numel() * t.element_size()
                  for t in (ch, cf, cd, ms, rlens, *tables, *outs))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes > t_ops else "operations"
 
 
+def _compare(name, body, k, codes, hits, tables, kern, plain, reps,
+             report):
+    """Holds one kernel against its plain version (every output integer
+    equal) and times both; keeps the numbers of the reported shape."""
+    import torch
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
+    _require(err == 0, f"{name} differs from its plain version at body "
+             f"{body}, k={k}: max |diff| {err}")
+    ms_k = _time_ms(kern, reps)
+    ms_p = _time_ms(plain, 1)
+    bound, bound_by = _bound(name, codes, got, tables, hits)
+    B, H, R = codes[0].shape[0], codes[0].shape[2], codes[1].shape[2]
+    print(f"parity {name:10s} B={B:2d} H={H:5d} R={R:5d} k={k}: "
+          f"equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, "
+          f"bound {bound:.4f} ms", flush=True)
+    prev = report.get(name, {"max_abs_err": 0})
+    entry = {"max_abs_err": max(prev["max_abs_err"], err)}
+    if body == REPORT_AT[name] and k == 10:
+        entry.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
+                     bound_by=bound_by, shape=f"B={B} H={H} R={R} k={k}")
+    else:
+        entry.update({x: prev[x] for x in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "shape") if x in prev})
+    report[name] = entry
+
+
 def kernel_parity(fa, bam, events, reps: int):
     """Each kernel against its plain version at the smallest, middle and
-    largest event sizes, k = 10 and 40; every output integer must be
-    equal.  Returns {name: stats at the largest size, k = 10}."""
+    largest event sizes of its mode, k = 10 and 40; every output integer
+    must be equal.  Returns {name: stats at the largest size, k = 10}."""
     import torch
     from vapor_tpu_torch.engine import kernels
-    from vapor_tpu_torch.engine.fused import (batch_from_numpy, kept_table,
-                                              row_codes)
+    from vapor_tpu_torch.engine.fused import (batch_from_numpy, intercept_z,
+                                              kept_table, row_codes)
     dev = torch.device("cuda")
     report = {}
-    for body in SIZES:
-        inv = next(ev for ev in events if ev[0] == "INV" and
-                   ev[2] - ev[1] == body)
-        dele = next(ev for ev in events if ev[0] == "DEL" and
+
+    def rows(ev, mode, k):
+        haps, fw, rlens, ms = _event_rows(fa, bam, ev, mode)
+        h, r, rl, m, _ = batch_from_numpy(haps, fw, rlens, ms,
+                                          k // 10 - 1, dev)
+        codes = (*row_codes(h, r, rl, k), m, rl, k)
+        h_d, h_a, scal = kernels.hist_plain(*codes)
+        kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
+        return codes, int(scal[:, :2].sum()), h_d, kd, ka
+
+    def find(svtype, body):
+        return next(ev for ev in events if ev[0] == svtype and
                     ev[2] - ev[1] == body)
+
+    for body in SIZES:
         for k in (10, 40):
-            cases = {}
-            for mode, ev in (("m1b", inv), ("del", dele)):
-                haps, fw, rlens, ms = _event_rows(fa, bam, ev, mode)
-                h, r, rl, m, _ = batch_from_numpy(haps, fw, rlens, ms,
-                                                  k // 10 - 1, dev)
-                codes = (*row_codes(h, r, rl, k), m, rl, k)
-                h_d, h_a, scal = kernels.hist_plain(*codes)
-                hits = int(scal[:, :2].sum())
-                kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
-                kd50 = kept_table(h_d, 10, 50, True)
-                ka50 = kept_table(kernels.left_hist_plain(*codes, kd50),
-                                  10, 50, True)
-                cases[mode] = (codes, hits, kd, ka, kd50, ka50)
-            codes_i, hits_i, kd_i, ka_i, _, _ = cases["m1b"]
-            codes_d, hits_d, kd_d, ka_d, kd50, ka50 = cases["del"]
+            codes_i, hits_i, _, kd_i, ka_i = rows(find("INV", body), "m1b",
+                                                  k)
+            codes_d, hits_d, h_d, kd_d, ka_d = rows(find("DEL", body),
+                                                    "del", k)
+            kd50 = kept_table(h_d, 10, 50, True)
+            ka50 = kept_table(kernels.left_hist_plain(*codes_d, kd50),
+                              10, 50, True)
             runs = {
                 "hist": (codes_i, hits_i, (),
                          lambda c=codes_i: kernels.hist(*c),
@@ -161,34 +212,26 @@ def kernel_parity(fa, bam, events, reps: int):
                             lambda c=codes_d: kernels.moment2_plain(
                                 *c, kd_d, ka_d, kd50, ka50)),
             }
-            for name, (codes, hits, tables, kern, plain) in runs.items():
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                err = max(int((g.long() - w.long()).abs().max())
-                          for g, w in zip(got, want))
-                _require(err == 0, f"{name} differs from its plain version "
-                         f"at body {body}, k={k}: max |diff| {err}")
-                ms_k = _time_ms(kern, reps)
-                ms_p = _time_ms(plain, 1)
-                bound, bound_by = _bound(name, codes, got, tables, hits)
-                H, R = codes[0].shape[2], codes[1].shape[2]
-                B = codes[0].shape[0]
-                print(f"parity {name:9s} B={B:2d} H={H:5d} R={R:5d} k={k}: "
-                      f"equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, "
-                      f"bound {bound:.4f} ms", flush=True)
-                prev = report.get(name, {"max_abs_err": 0})
-                entry = {"max_abs_err": max(prev["max_abs_err"], err)}
-                if body == SIZES[-1] and k == 10:
-                    entry.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
-                                 bound_by=bound_by,
-                                 shape=f"B={B} H={H} R={R} k={k}")
-                else:
-                    entry.update({x: prev[x] for x in (
-                        "ms", "plain_ms", "bound_ms", "bound_by", "shape")
-                        if x in prev})
-                report[name] = entry
+            for name, run in runs.items():
+                _compare(name, body, k, *run, reps, report)
+    for body in DUP_SIZES:
+        for k in (10, 40):
+            codes, hits, _, kd, ka = rows(find("DUP", body), "rdd", k)
+            h_kept = kernels.kept_hist_plain(*codes, kd, ka)
+            found, z = intercept_z(h_kept, codes[0].shape[2])
+            z = torch.where(found, z + 2 * codes[3], 0).to(torch.int32)
+            print(f"intercepts at DUP body {body}, k={k}: "
+                  f"{int(found.sum())} of {found.numel()} rows",
+                  flush=True)
+            _compare("kept_hist", body, k, codes, hits, (kd, ka),
+                     lambda c=codes: kernels.kept_hist(*c, kd, ka),
+                     lambda c=codes: kernels.kept_hist_plain(*c, kd, ka),
+                     reps, report)
+            _compare("rdd_moment", body, k, codes, hits, (kd, ka, z),
+                     lambda c=codes: kernels.rdd_moment(*c, kd, ka, z),
+                     lambda c=codes: kernels.rdd_moment_plain(*c, kd, ka,
+                                                              z),
+                     reps, report)
     return report
 
 
@@ -196,17 +239,51 @@ def kernel_parity(fa, bam, events, reps: int):
 # phases 4-5: the CLI
 # ---------------------------------------------------------------------------
 
-def run_cli(fa, bam, bed, out, backend="torch", device="cuda"):
+def run_cli(mode, fa, bam, sv_input, out=None, backend="torch",
+            device="cuda"):
+    """One CLI run; returns the output's lines without header lines (the
+    bed rows, or the annotated VCF records, which vcf mode writes to
+    <sv-input>.vapor)."""
     from vapor_tpu_torch.cli import main
-    rc = main(["bed", "--sv-input", bed, "--reference", fa,
-               "--pacbio-input", bam, "--output-path",
-               os.path.join(os.path.dirname(out), "figs"),
-               "--output-file", out, "--backend", backend,
-               "--device", device, "--no-figures"])
-    _require(rc == 0, f"CLI ({backend}, {device}) exited {rc}")
-    with open(out) as fh:
+    args = [mode, "--sv-input", sv_input, "--reference", fa,
+            "--pacbio-input", bam, "--output-path",
+            os.path.join(os.path.dirname(sv_input), "figs"),
+            "--backend", backend, "--device", device, "--no-figures"]
+    if out:
+        args += ["--output-file", out]
+    rc = main(args)
+    _require(rc == 0, f"{mode} CLI ({backend}, {device}) exited {rc}")
+    with open(out or sv_input + ".vapor") as fh:
         return [line for line in fh.read().splitlines()
                 if not line.startswith("#")]
+
+
+def _copy_lines(src: str, dst: str, keep) -> str:
+    """Copies the lines of src whose index i has keep(i) to dst."""
+    with open(src) as fh, open(dst, "w") as fo:
+        fo.writelines(x for i, x in enumerate(fh) if keep(i))
+    return dst
+
+
+def _timed_run(label, counted, *cli_args, **cli_kw):
+    """Drives one main path on the card with every count set to 0 just
+    before it; checks the kernels of that path launched and no plain
+    version ran on CUDA tensors.  Returns (rows, seconds, launches)."""
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rows = run_cli(*cli_args, **cli_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    plain_on_cuda = dict(kernels.PLAIN_CUDA_CALLS)
+    _require(all(launches[n] > 0 for n in counted),
+             f"{label}: a kernel of the path never launched: {launches}")
+    _require(not any(plain_on_cuda.values()),
+             f"{label}: plain versions ran on CUDA tensors: "
+             f"{plain_on_cuda}")
+    return rows, wall, launches
 
 
 def main() -> int:
@@ -223,7 +300,8 @@ def main() -> int:
     try:
         from vapor_tpu_torch.engine import kernels
         from vapor_tpu_torch.engine.kernels import build
-        from vapor_tpu_torch.sim.scale import build_event_worklist
+        from vapor_tpu_torch.sim.scale import (build_event_worklist,
+                                               build_vcf_worklist)
     except ImportError as exc:
         print(f"chip_smoke: vapor_tpu_torch not importable: {exc}",
               file=sys.stderr)
@@ -238,47 +316,92 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         fa, bam, bed, events = build_event_worklist(tmp, args.seed)
-        print(f"phase 2 input: {len(events)} events in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        vdir = os.path.join(tmp, "vcf")
+        os.makedirs(vdir)
+        vfa, vbam, vcf, vevents = build_vcf_worklist(vdir, args.seed)
+        print(f"phase 2 input: {len(events)} bed events, {len(vevents)} "
+              f"vcf events in {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
         report = kernel_parity(fa, bam, events, args.reps)
         print("phase 3 kernel parity: all equal", flush=True)
 
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        rows = run_cli(fa, bam, bed, os.path.join(tmp, "cuda.vapor"))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        plain_on_cuda = dict(kernels.PLAIN_CUDA_CALLS)
+        # bed: DEL (del, w10 junction), INV (m1b, w10 junction) and DUP
+        # (rdd) run all six kernels
+        rows, wall, launches = _timed_run(
+            "bed", kernels.NAMES, "bed", fa, bam, bed,
+            os.path.join(tmp, "cuda.vapor"))
         _require(len(rows) == len(events),
                  f"{len(rows)} rows for {len(events)} events")
-        _require(all(n > 0 for n in launches.values()),
-                 f"a kernel of the path never launched: {launches}")
-        _require(not any(plain_on_cuda.values()),
-                 f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+        whole_dups = sum(1 for t, s, e in events if t == "DUP")
+        _require(all(launches[n] >= 2 * whole_dups
+                     for n in ("kept_hist", "rdd_moment")),
+                 f"fewer than 2 rdd launches per whole-event DUP "
+                 f"({whole_dups}): {launches}")
         called = [r.split("\t") for r in rows if r.split("\t")[5] != "NA"]
         _require(all(math.isfinite(float(c[5])) for c in called),
                  "non-finite quality score")
+        _require(all(r.split("\t")[5] != "NA" for r in rows
+                     if r.split("\t")[3] == "TANDUP"),
+                 "a tandem DUP was not scored")
         n_reads = sum(len(c[9].split(",")) for c in called)
-        print(f"phase 4 end to end: {len(rows)} events, {len(called)} "
+        print(f"phase 4 end to end, bed: {len(rows)} events, {len(called)} "
               f"called, {n_reads} reads scored in {wall:.2f} s: "
-              f"{len(rows) / wall:.2f} events/s, "
-              f"{n_reads / wall:.1f} reads/s; launches {launches}",
-              flush=True)
+              f"{len(rows) / wall:.2f} events/s, {n_reads / wall:.1f} "
+              f"reads/s; launches {launches}", flush=True)
 
-        small = os.path.join(tmp, "small.bed")
-        with open(bed) as fh, open(small, "w") as fo:
-            fo.writelines(fh.readlines()[:4])
+        # vcf: DISDUP, DUP_INV and the complex event all score by rdd
+        # vcf mode rewrites <sv-input>.vapor: run on a copy of the input
+        vrun = shutil.copyfile(vcf, os.path.join(vdir, "cuda.vcf"))
+        vrows, vwall, vlaunches = _timed_run(
+            "vcf", ("hist", "kept_hist", "rdd_moment"), "vcf", vfa, vbam,
+            vrun)
+        _require(len(vrows) == len(vevents),
+                 f"{len(vrows)} annotated records for {len(vevents)} "
+                 f"events")
+        recs = [r.split("VaPor_REC=")[1].split("\t")[0] for r in vrows]
+        _require(all(x != "NA" for x in recs), "a vcf event was not scored")
+        gs = [float(r.split("VaPor_GS=")[1].split(";")[0]) for r in vrows]
+        _require(all(math.isfinite(x) for x in gs), "non-finite GS")
+        v_reads = sum(len(x.split(",")) for x in recs)
+        print(f"phase 4 end to end, vcf: {len(vrows)} events, {v_reads} "
+              f"reads scored in {vwall:.2f} s: {len(vrows) / vwall:.2f} "
+              f"events/s, {v_reads / vwall:.1f} reads/s; launches "
+              f"{vlaunches}", flush=True)
+        for name in kernels.NAMES:
+            launches[name] += vlaunches[name]
+
+        # the 4 smallest DEL/INV events and the 2 smallest DUPs; the
+        # vcf's smallest DISDUP, DUP_INV and complex event
+        keep_bed = [i for i, (t, s, e) in enumerate(events)
+                    if e - s == min(SIZES[0], DUP_SIZES[0])]
+        small = _copy_lines(bed, os.path.join(tmp, "small.bed"),
+                            lambda i: i in keep_bed)
+        with open(vcf) as fh:
+            n_meta = sum(1 for x in fh if x.startswith("#"))
+        with open(vrun + ".vapor") as fh:
+            vcard = fh.read().splitlines()
         for backend, device in (("torch", "cpu"), ("numpy", "cpu")):
-            ref = run_cli(fa, bam, small,
+            ref = run_cli("bed", fa, bam, small,
                           os.path.join(tmp, f"{backend}.vapor"),
                           backend=backend, device=device)
-            _require(ref == rows[:4], f"{backend} on {device} differs "
-                     f"from the card on the 4 smallest events")
-        print("phase 5 cross-check: the card's rows for the 4 smallest "
-              "events equal the CPU and numpy-oracle runs byte for byte",
-              flush=True)
+            _require(ref == [rows[i] for i in keep_bed],
+                     f"bed: {backend} on {device} differs from the card "
+                     f"on the smallest events")
+            vsmall = _copy_lines(vcf, os.path.join(vdir, f"{backend}.vcf"),
+                                 lambda i: i < n_meta + 3)
+            run_cli("vcf", vfa, vbam, vsmall, backend=backend,
+                    device=device)
+            with open(vsmall + ".vapor") as fh:
+                got = fh.read().splitlines()
+            _require(got == vcard[:len(got)] and
+                     sum(not x.startswith("#") for x in got) == 3,
+                     f"vcf: {backend} on {device} differs from the card "
+                     f"on the 3 smallest events")
+        print(f"phase 5 cross-check: the card's rows for the {len(keep_bed)}"
+              f" smallest bed events and its annotated VCF for the 3 "
+              f"smallest vcf events equal the CPU and numpy-oracle runs "
+              f"byte for byte", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

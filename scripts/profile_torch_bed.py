@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of a vapor_tpu_torch bed run goes, on the card.
 
-Builds chip_smoke.py's synthetic DEL/INV worklist (same seed, 26 events),
-runs the bed CLI once to warm up (kernel build, first launches), then:
+Builds chip_smoke.py's synthetic bed worklist (same seed, 34 events:
+DEL, INV and tandem DUP), runs the bed CLI once to warm up (kernel
+build, first launches), then:
 
 1. a run under torch.profiler (CPU + CUDA activities): the device time
    of every kernel by name, summed, against the run's wall time, which

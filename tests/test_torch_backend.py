@@ -15,6 +15,7 @@ from test_fused_vs_oracle import _mutate, _scenarios
 # the DEL, INV and no-SV scenarios: one (H, R, rows) shape for the JAX
 # engine, so it compiles once per mode (the oracle takes every scenario)
 JAX_SCENARIOS = (0, 1, 2, 3, 6, 7)
+DUP_SCENARIOS = (4, 5)
 torch.set_num_threads(1)      # the suite runs several processes at once
 
 
@@ -86,12 +87,57 @@ def test_oracle_fallbacks_match(backends):
 
 
 def test_redefine_diagonal_raises(backends):
+    """redefine_diagonal (device mode rdd) runs, even on no reads; a
+    scorer the engine does not know raises."""
     ours, _ = backends
-    with pytest.raises(NotImplementedError, match="rdd"):
-        ours.score_batch("redefine_diagonal", "ACGT" * 50, "ACGT" * 60,
+    assert ours.score_batch_async("redefine_diagonal", "A", "C", [], 10)() \
+        == []
+    with pytest.raises(KeyError):
+        ours.score_batch("redefine_diagonal2", "ACGT" * 50, "ACGT" * 60,
                          [["ACGT" * 40, 0, "r"]], 10)
-    with pytest.raises(NotImplementedError):
-        ours.score_batch_async("redefine_diagonal", "A", "C", [], 10)
+
+
+def test_redefine_diagonal_matches_jax_and_oracle(backends):
+    """redefine_diagonal scores equal vapor_tpu's FusedBackend and the
+    oracle over every scenario, the DUP ones included."""
+    ours, theirs = backends
+    scorer = "redefine_diagonal"
+    nontrivial = 0
+    for n, (ref_hap, alt_hap, reads, window) in enumerate(_scenarios()):
+        expect = [oracle.SCORERS[scorer](ref_hap, alt_hap, r[0], r[1],
+                                         window) for r in reads]
+        got = ours.score_batch(scorer, ref_hap, alt_hap, reads, window)
+        assert _floats(got) == _floats(expect), n
+        if n in JAX_SCENARIOS + DUP_SCENARIOS:
+            assert _floats(got) == _floats(theirs.score_batch(
+                scorer, ref_hap, alt_hap, reads, window)), n
+        nontrivial += sum(1 for e in expect if e != [0, 0])
+    assert nontrivial >= 5
+
+
+def test_redefine_diagonal_on_dup_haps_matches_oracle(backends):
+    """Tandem-DUP rows with lower-case stretches: rdd scores the raw haps
+    (no upper-casing), as vapor_tpu and the oracle do."""
+    ours, _ = backends
+    rng = random.Random(91)
+    checked = 0
+    for trial in range(3):
+        left = "".join(rng.choice("ACGT") for _ in range(150))
+        body = "".join(rng.choice("ACGT") for _ in range(220))
+        right = "".join(rng.choice("ACGT") for _ in range(150))
+        if trial == 2:
+            body = body[:60].lower() + body[60:]
+        ref_hap, alt_hap = left + body + right, left + body * 2 + right
+        reads = [[_mutate(alt_hap if i % 2 == 0 else ref_hap, rng, 0.06),
+                  rng.choice([0, 17]), f"r{i}"] for i in range(6)]
+        got = ours.score_batch("redefine_diagonal", ref_hap, alt_hap,
+                               reads, 10)
+        for g, r in zip(got, reads):
+            e = oracle.score_redefine_diagonal(ref_hap, alt_hap, r[0], r[1],
+                                               10)
+            assert _floats([g]) == _floats([e])
+            checked += e != [0, 0]
+    assert checked >= 6
 
 
 def test_get_backend_names():

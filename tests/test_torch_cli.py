@@ -1,39 +1,127 @@
-"""`python -m vapor_tpu_torch bed --device cpu` reproduces the DEL/INV
-bed goldens of fixtures/golden/ byte for byte, on the cases that
-tests/golden_cases.py builds."""
+"""`python -m vapor_tpu_torch {bed,vcf,ins,svelter} --device cpu`
+reproduces every golden of fixtures/golden/ byte for byte, on the cases
+that tests/golden_cases.py builds; `pdf` equals vapor_tpu's own pdf
+mode."""
 import os
+import shutil
 
 import pytest
 
 import golden_cases as gc
+import vapor_tpu_torch.cli as tcli
 from vapor_tpu_torch.cli import main
 
-CASES = {
-    "bed_del_11": lambda d: gc.build_bed_case(d, "DEL", 6000, 6300, 11,
-                                              True),
-    "bed_del_12": lambda d: gc.build_bed_case(d, "DEL", 6000, 6200, 12,
-                                              False),
-    "bed_inv_13": lambda d: gc.build_bed_case(d, "INV", 6000, 6350, 13,
-                                              True),
-    "bed_junction_big": gc.build_big_case,
-}
+BED_CASES = {f"bed_{t.lower()}_{seed}": (t, s0, e0, seed, het)
+             for t, s0, e0, seed, het in gc.BED_CASES}
 
 
-def _args(case, out, d, *extra):
-    return ["bed", "--sv-input", case["bed"], "--reference", case["fasta"],
+def _args(mode, sv_input, case, d, *extra):
+    return [mode, "--sv-input", sv_input, "--reference", case["fasta"],
             "--pacbio-input", case["bam"], "--output-path",
-            os.path.join(d, "figs"), "--output-file", out, *extra]
+            os.path.join(d, "figs"), *extra]
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_bed_golden_on_cpu(name, tmp_path):
-    d = str(tmp_path)
-    case = CASES[name](d)
+def _run(args):
+    assert main([*args, "--device", "cpu", "--no-figures"]) == 0
+
+
+def _bed(name, d):
+    case = gc.build_big_case(d) if name == "bed_junction_big" else \
+        gc.build_bed_case(d, *BED_CASES[name])
     out = os.path.join(d, "ours.vapor")
-    assert main(_args(case, out, d, "--device", "cpu", "--no-figures")) == 0
+    _run(_args("bed", case["bed"], case, d, "--output-file", out))
+    return out
+
+
+def _vcf(build, annotated, d, monkeypatch):
+    case = build(d)
+    vcf = shutil.copyfile(case["vcf"], os.path.join(
+        d, "ann_svs.vcf" if annotated else "my_svs.vcf"))
+    if not annotated:   # the TSV alone, as golden_cases.run_vcf_case
+        monkeypatch.setattr(tcli, "annotate_vcf", lambda *a, **k: None)
+    _run(_args("vcf", vcf, case, d))
+    return vcf + ".vapor"
+
+
+def _svelter(d):
+    case = gc.build_svelter_case(d)
+    out = os.path.join(d, "ours.out")
+    _run(_args("svelter", case["svelter"], case, d, "--output-file", out))
+    return out
+
+
+def _ins(d):
+    case = gc.build_melt_case(d)
+    _run(_args("ins", case["prefix"], case, d))
+    return case["prefix"] + ".vapor"
+
+
+GOLDENS = {
+    "vcf_all_types": lambda d, mp: _vcf(gc.build_vcf_case, False, d, mp),
+    "vcf_all_types_annotated":
+        lambda d, mp: _vcf(gc.build_vcf_case, True, d, mp),
+    "vcf_fallbacks": lambda d, mp: _vcf(gc.build_fb_case, False, d, mp),
+    "svelter_basic": lambda d, mp: _svelter(d),
+    "ins_melt": lambda d, mp: _ins(d),
+}
+BED_GOLDENS = sorted([*BED_CASES, "bed_junction_big"])
+
+
+def _same_as_golden(out, name):
     with open(out) as got, \
             open(os.path.join(gc.GOLDEN_DIR, f"{name}.vapor")) as want:
         assert got.read() == want.read()
+
+
+def test_every_golden_has_a_case():
+    on_disk = {f[:-len(".vapor")] for f in os.listdir(gc.GOLDEN_DIR)
+               if f.endswith(".vapor")}
+    assert on_disk == set(GOLDENS) | set(BED_GOLDENS)
+
+
+@pytest.mark.parametrize("name", BED_GOLDENS)
+def test_bed_golden_on_cpu(name, tmp_path):
+    _same_as_golden(_bed(name, str(tmp_path)), name)
+
+
+@pytest.mark.parametrize("name", sorted(GOLDENS))
+def test_golden_on_cpu(name, tmp_path, monkeypatch):
+    _same_as_golden(GOLDENS[name](str(tmp_path), monkeypatch), name)
+
+
+def test_bed_dup_golden_on_numpy_backend(tmp_path):
+    """The tandem-DUP golden through the port's CLI on the numpy oracle:
+    the same bytes as through the fused engine."""
+    d = str(tmp_path)
+    case = gc.build_bed_case(d, *BED_CASES["bed_dup_14"])
+    out = os.path.join(d, "numpy.vapor")
+    _run(_args("bed", case["bed"], case, d, "--output-file", out,
+               "--backend", "numpy"))
+    _same_as_golden(out, "bed_dup_14")
+
+
+def test_pdf_matches_vapor_tpu(tmp_path):
+    """pdf mode (4-column BED, --sv-type and --size-cff filters, output
+    next to the input) against vapor_tpu's pdf mode on the numpy
+    backend."""
+    from vapor_tpu.cli import main as jax_main
+    d = str(tmp_path)
+    case = gc.build_bed_case(d, *BED_CASES["bed_dup_14"])
+    bed4 = os.path.join(d, "calls.bed")
+    with open(bed4, "w") as fo:
+        fo.write("chrS\t6000\t6250\tDUP\nchrS\t6000\t6030\tDUP\n"
+                 "chrS\t3000\t3400\tDEL\n")
+    outs = []
+    for name, run, extra in (("ours", main, ["--device", "cpu"]),
+                             ("theirs", jax_main, ["--backend", "numpy"])):
+        out = os.path.join(d, f"{name}.vapor")
+        assert run(_args("pdf", bed4, case, d, "--output-file", out,
+                         "--sv-type", "TANDUP", "--size-cff", "50",
+                         "--PB-supp", "3", "--no-figures", *extra)) == 0
+        with open(out) as fh:
+            outs.append(fh.read())
+    assert outs[0] == outs[1]
+    assert outs[0].count("\n") == 2       # header + the one DUP >= 50 bp
 
 
 def test_unported_modes_and_missing_card_exit_2(tmp_path, capsys):
@@ -41,14 +129,15 @@ def test_unported_modes_and_missing_card_exit_2(tmp_path, capsys):
     d = str(tmp_path)
     case = gc.build_bed_case(d, "DEL", 6000, 6300, 11, True)
     out = os.path.join(d, "x.vapor")
-    for mode in ("vcf", "ins", "svelter", "pdf", "scatter"):
-        args = _args(case, out, d, "--device", "cpu")
-        args[0] = mode
+    base = _args("bed", case["bed"], case, d, "--output-file", out)
+    for args in (["scatter", *base[1:], "--device", "cpu"],
+                 [*base, "--device", "cpu", "--trace"],
+                 [*base, "--device", "cpu", "--shard-by-contig"]):
         assert main(args) == 2
         assert "not ported yet" in capsys.readouterr().err
-    assert main(_args(case, out, d, "--trace")) == 2
     if not torch.cuda.is_available():
         # cuda is the default device: no card means no run, never the CPU
-        assert main(_args(case, out, d, "--no-figures")) == 2
-        assert "CUDA" in capsys.readouterr().err
+        for mode in ("bed", "vcf", "svelter"):
+            assert main([mode, *base[1:], "--no-figures"]) == 2
+            assert "CUDA" in capsys.readouterr().err
         assert not os.path.exists(out)

@@ -10,7 +10,8 @@ import torch
 from vapor_tpu_torch.engine import kernels
 from vapor_tpu_torch.engine.constants import READ_PAD
 from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
-                                          kept_table, row_codes)
+                                          intercept_z, kept_table,
+                                          row_codes)
 from torch_rows import random_rows
 
 pytestmark = pytest.mark.cuda
@@ -54,12 +55,18 @@ def test_kernels_equal_plain(cuda, H, R, k):
                            kernels.moment_plain(*codes, *keep, w10))
     assert torch.equal(kernels.moment2(*codes, kd, ka, kd50, ka50),
                        kernels.moment2_plain(*codes, kd, ka, kd50, ka50))
+    h_kept = kernels.kept_hist(*codes, kd, ka)
+    assert torch.equal(h_kept, kernels.kept_hist_plain(*codes, kd, ka))
+    found, z = intercept_z(h_kept, H)
+    z = torch.where(found, z + 2 * m, 0).to(torch.int32)
+    assert torch.equal(kernels.rdd_moment(*codes, kd, ka, z),
+                       kernels.rdd_moment_plain(*codes, kd, ka, z))
     assert all(kernels.LAUNCHES[n] == launched[n] + (2 if n == "moment"
                                                      else 1)
                for n in kernels.NAMES)
 
 
-@pytest.mark.parametrize("scorer", ["m1b", "w10", "del"])
+@pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])
 def test_fused_batch_card_equals_cpu(cuda, scorer):
     haps, reads, rlens, ms = _batch(1024, 1536, 11, seed=5)
     for k_idx in range(4):

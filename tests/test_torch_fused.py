@@ -3,7 +3,8 @@ engine, exactly: every statistic is an integer.
 
 One numpy batch is built from a seed (or from the scenario sets of
 test_fused_vs_oracle / test_fused_del_mode) and handed to both
-vapor_tpu.engine.fused._fused_batch_jit and the port.  The JAX engine is
+vapor_tpu.engine.fused._fused_batch_jit and the port, in every device
+mode (m1b, w10, del, rdd).  The JAX engine is
 called directly: fused_batch would route through the 8-device CPU mesh
 this suite forces.  Each kernel's plain version is also held against
 the JAX helpers that compute the same stage.
@@ -89,10 +90,12 @@ def _assert_same(batch, k_idx, Hs, Rs, scorer):
     t_d, t_a, packed = tf.fused_batch(
         *tf.batch_from_numpy(*batch, k_idx, "cpu"), H=Hs, R=Rs,
         scorer=scorer)
-    ts = tf.FusedStats(t_d, t_a, packed)
+    ts = tf.FusedStats(t_d, t_a, packed, scorer)
     assert np.array_equal(t_d.numpy(), j_d)
     assert np.array_equal(t_a.numpy(), j_a)
-    fields = FIELDS + (("cnt2", "w10_2") if scorer == "del" else ())
+    fields = FIELDS + {"del": ("cnt2", "w10_2"),
+                       "rdd": ("sel_cnt", "sel_pos", "sel_neg")}.get(
+                           scorer, ())
     for f in fields:
         assert np.array_equal(getattr(ts, f), getattr(js, f)), f
     if scorer == "del":   # within-10% sum |d|: JAX moment columns 16-17
@@ -104,13 +107,34 @@ def _assert_same(batch, k_idx, Hs, Rs, scorer):
 BATCH = _batch()
 
 
-@pytest.mark.parametrize("scorer", ["m1b", "w10", "del"])
+@pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])
 @pytest.mark.parametrize("k_idx", [0, 1, 2, 3])
 def test_fused_batch_matches_jax(scorer, k_idx):
     ts = _assert_same(BATCH, k_idx, H, R, scorer)
     assert int(ts.n_dots.sum()) > 0 and int(ts.cnt.sum()) > 0
-    if scorer != "m1b":
+    if scorer in ("w10", "del"):
         assert int((ts.w10 if scorer == "w10" else ts.w10_2).sum()) > 0
+    if scorer == "rdd":
+        assert int(ts.sel_cnt.sum()) > 0
+
+
+def test_batch_has_found_tied_and_empty_intercepts():
+    """The rdd batch reaches every branch of the intercept fit: rows that
+    find an intercept, non-empty rows whose winners tie, empty rows."""
+    seen = set()
+    for k_idx in range(4):
+        h, r, rl, ms, _ = tf.batch_from_numpy(*BATCH, k_idx, "cpu")
+        k = 10 * (k_idx + 1)
+        codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
+        h_d, h_a, _ = kernels.hist(*codes)
+        kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+        h_kept = kernels.kept_hist(*codes, kd, ka)
+        found, _ = tf.intercept_z(h_kept, H)
+        nonempty = h_kept.sum(1) > 0
+        seen |= {"found"} if bool(found.any()) else set()
+        seen |= {"tie"} if bool((nonempty & ~found).any()) else set()
+        seen |= {"empty"} if bool((~nonempty).any()) else set()
+    assert seen == {"found", "tie", "empty"}
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +176,40 @@ def _jax_stages(hap, read, rlen, m, k_idx, Hs, Rs):
     return (h_d, h_a, scal, h_left, kd, ka, kd50, ka50, mom, mom50)
 
 
+@functools.partial(jax.jit, static_argnames=("Hs", "Rs"))
+def _jax_rdd_stages(hap, read, rlen, m, k_idx, Hs, Rs):
+    """One row's JAX rdd stages: the kept d-histogram, the intercept and
+    the moment block with the selection sums (fused._fused_one)."""
+    W = jf.hist_width(Hs, Rs)
+    rc = jf._derive_rc_row(read, rlen)
+    Kf = jf._hits_packed(hap, read, k_idx, m)
+    Kr = jf._hits_packed_rc_dot(hap, rc, rlen, k_idx, m)
+    Ksum = Kf.astype(jnp.int8) + Kr.astype(jnp.int8)
+    kd = jf.kept_table_device(jf.skew_reduce(Ksum, W, -1, Hs), 10, 10,
+                              False)
+    ka = jf.kept_table_device(jf.skew_reduce(Ksum, W, +1, 0), 10, 10,
+                              False)
+    keep = jf.unskew_broadcast(kd, Hs, -1, Hs, Rs) | \
+        jf.unskew_broadcast(ka, Hs, +1, 0, Rs)
+    h_kept = jf.skew_reduce(Ksum * keep.astype(jnp.int8), W, -1, Hs)
+    found, z_dev = jf.intercept_z_device(h_kept, Hs)
+    z = jnp.where(found, z_dev + 2 * m, 0)
+    rows = jax.lax.broadcasted_iota(jnp.int32, (Hs, Rs), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (Hs, Rs), 1)
+    mom = jf._moment_block(Ksum, keep, rows - m, cols - (rows - m), z,
+                           False, True)
+    return h_kept, found, z, mom
+
+
 def _moments(mom):
     m = np.asarray(mom, np.int64)
     return [(m[0] << 16) + m[1], (m[2] << 16) + m[3], (m[4] << 16) + m[5]]
+
+
+def _sel_block(mom):
+    m = np.asarray(mom, np.int64)
+    return [(m[6] << 16) + m[7], (m[8] << 16) + (m[9] << 16) + m[10],
+            (m[11] << 16) + (m[12] << 16) + m[13]]
 
 
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
@@ -190,6 +245,85 @@ def test_kernel_plain_versions_match_jax_stages(k, m):
         assert mom2[b].tolist() == [*_moments(j_mom)[:2], 0,  # moment2
                                     *_moments(j_mom50)]
     assert int(scal[:, :2].sum()) > 0 and int(h_left.sum()) > 0
+
+
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+@pytest.mark.parametrize("m", [0, 23])
+def test_rdd_plain_versions_match_jax_stages(k, m):
+    """kept_hist, intercept_z and rdd_moment against the JAX rdd stages:
+    skew_reduce of the kept hits, intercept_z_device and _moment_block
+    with want_sel."""
+    Hs, Rs, B = 512, 512, 3
+    batch = random_rows(Hs, Rs, B, seed=k + m + 1, ms=(m,), err=0.02)
+    h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
+    codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
+    h_d, h_a, _ = kernels.hist(*codes)
+    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    h_kept = kernels.kept_hist(*codes, kd, ka)
+    found, z = tf.intercept_z(h_kept, Hs)
+    z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
+    mom = kernels.rdd_moment(*codes, kd, ka, z)
+    for b in range(B):
+        j_kept, j_found, j_z, j_mom = (np.asarray(x) for x in
+                                       _jax_rdd_stages(
+            *(jnp.asarray(x[b]) for x in batch), jnp.int32(k // 10 - 1),
+            Hs=Hs, Rs=Rs))
+        assert np.array_equal(h_kept[b].numpy(), j_kept)     # kept_hist
+        assert (bool(found[b]), int(z[b])) == (bool(j_found), int(j_z))
+        assert mom[b].tolist() == [*_moments(j_mom)[:2], 0,  # rdd_moment
+                                   *_sel_block(j_mom)]
+    assert int(h_kept.sum()) > 0 and bool(found.any())
+    assert int(mom[:, 3].sum()) > 0
+
+
+def _crafted(name):
+    """(W, H, histogram) cases for the intercept fit's branches."""
+    W, H = 640, 256
+    h = np.zeros(W, np.int32)
+    if name == "one_value":          # hi == lo: every value in bin 10
+        h[300] = 7
+    elif name == "one_bin":          # one first-level bin wins outright
+        h[[100, 420]] = 1
+        h[250:256] = [3, 1, 4, 1, 5, 9]
+    elif name == "sub_hi_eq_lo":     # the winning bin holds one value
+        h[[100, 300, 420]] = [2, 9, 2]
+    elif name == "two_way_tie":      # two first-level bins, equal totals
+        h[[100, 101, 420]] = [3, 2, 5]
+    elif name == "sub_tie":          # one winning bin, its sub-bins tie
+        h[[100, 420]] = 1
+        h[[250, 259]] = 6
+    elif name == "even_median":      # ranks n/2 and n/2 + 1 differ
+        h[[10, 630]] = 1
+        h[[286, 292, 293, 306]] = [1, 2, 2, 1]
+    elif name == "negative_values":  # values v = bin - H below zero
+        h[[20, 40, 41, 42, 200]] = [1, 5, 6, 2, 1]
+    return W, H, h
+
+
+@pytest.mark.parametrize("name", ["empty", "one_value", "one_bin",
+                                  "sub_hi_eq_lo", "two_way_tie", "sub_tie",
+                                  "even_median", "negative_values"])
+def test_intercept_z_matches_jax_on_crafted_rows(name):
+    W, H, h = _crafted(name)
+    found, z = tf.intercept_z(torch.as_tensor(h[None]), H)
+    j_found, j_z = jf.intercept_z_device(jnp.asarray(h), H)
+    assert (bool(found[0]), int(z[0])) == (bool(j_found), int(j_z))
+    expect_found = name not in ("empty", "two_way_tie", "sub_tie")
+    assert bool(found[0]) == expect_found
+    if not expect_found:
+        assert int(z[0]) == 0
+
+
+def test_intercept_z_batches_rows():
+    """All crafted rows in one batch give each row's own answer."""
+    names = ["empty", "one_value", "one_bin", "sub_hi_eq_lo",
+             "two_way_tie", "sub_tie", "even_median", "negative_values"]
+    rows = np.stack([_crafted(n)[2] for n in names])
+    found, z = tf.intercept_z(torch.as_tensor(rows), 256)
+    for b, row in enumerate(rows):
+        one = tf.intercept_z(torch.as_tensor(row[None]), 256)
+        assert (bool(found[b]), int(z[b])) == (bool(one[0][0]),
+                                               int(one[1][0]))
 
 
 # ---------------------------------------------------------------------------
@@ -270,5 +404,12 @@ def test_wrappers_reject_bad_input_and_run_plain_on_cpu():
         kernels.left_hist(ch, cf, cd, ms, rl, 10, keep.int())
     with pytest.raises(ValueError, match="table1"):
         kernels.moment(ch, cf, cd, ms, rl, 10, keep, keep[:, :-1], False)
-    with pytest.raises(NotImplementedError, match="rdd"):
-        tf.fused_batch(h, r, rl, ms, 0, H=256, R=256, scorer="rdd")
+    with pytest.raises(ValueError, match="z"):
+        kernels.rdd_moment(ch, cf, cd, ms, rl, 10, keep, keep,
+                           ms.long())
+    with pytest.raises(ValueError, match="table1"):
+        kernels.kept_hist(ch, cf, cd, ms, rl, 10, keep, keep.int())
+    with pytest.raises(ValueError, match="unknown device mode"):
+        tf.fused_batch(h, r, rl, ms, 0, H=256, R=256, scorer="rdd2")
+    with pytest.raises(ValueError, match="unknown device mode"):
+        tf.FusedStats(h_d, h_a, scal.long(), "m1")

@@ -1,30 +1,42 @@
-"""Command-line interface: ``python -m vapor_tpu_torch bed ...``.
+"""Command-line interface: ``python -m vapor_tpu_torch {bed,vcf,ins,
+svelter,pdf} ...``.
 
 The argument surface is vapor-tpu's (reference ``vapor`` script,
 vapor:287-296, plus the framework flags), with ``--device {cuda,cpu}``
-and ``--backend {torch,numpy}``.  This slice of the port runs the ``bed``
-subcommand; ``vcf``, ``ins``, ``svelter``, ``pdf`` and ``scatter`` exit
-with code 2, as do ``--shard-by-contig`` and ``--trace``.
+and ``--backend {torch,numpy}``.  ``scatter``, ``--shard-by-contig`` and
+``--trace`` are not ported and exit with code 2; ``--num-shards`` splits
+a worklist round robin.
 
-Flow quirks preserved from the reference: DEL/INV rows are keyed
-``chrom:start:end:TYPE`` and scored events append to the output in
-worklist order.
+Flow quirks preserved from the reference:
+* DEL/INV rows are keyed ``chrom:start:end:TYPE`` and scored events
+  append to the output in worklist order;
+* VCF mode writes to ``<sv-input>.vapor`` whatever --output-file says and
+  then rewrites that file as an annotated VCF (vapor:385, 466);
+* DEL/INV spans < 50 bp emit NA rows, with the sub-50 INV row labeled
+  DEL (vapor:393-397, 408-412);
+* svelter mode appends without writing a header (vapor:492);
+* ``ins`` (MELT) mode works as vapor_pdf:43-108 describes (the
+  reference CLI's ins branch is broken: vapor:310).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 from typing import List, Optional
 
 from . import vapor_version
 from .config import DEFAULT_CONFIG
-from .io.parsers import bed_info_readin
+from .io.parsers import (bed4_info_readin, bed_info_readin, melt_records,
+                         svelter_readin, vcf_list_readin)
 from .stats.genotype import organize_result
+from .utils.coro import run_pipelined
 from .validators import ValidatorContext
 from .writers.tsv import append_result_row, initiate_output
+from .writers.vcf import annotate_vcf, invert_record_keys
 
-PORTED_MODES = ("bed",)
+PORTED_MODES = ("bed", "vcf", "ins", "svelter", "pdf")
 
 
 def _path_modify(path: str) -> str:
@@ -97,6 +109,13 @@ def _sample_name(path: str) -> str:
     return ".".join(path.split("/")[-1].split(".")[:-1])
 
 
+def _shard(items: List, index: int, total: int) -> List:
+    """Round-robin worklist shard `index` of `total`."""
+    if total <= 1:
+        return list(items)
+    return [x for i, x in enumerate(items) if i % total == index]
+
+
 def _resume_keys(out_name: str):
     """Keys of events already written (checkpoint/resume support)."""
     done = set()
@@ -112,16 +131,27 @@ def _resume_keys(out_name: str):
 
 
 def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
-            fig_ext: str = "png") -> None:
-    from .utils.coro import run_pipelined
+            fig_ext: str = "png", bed4: bool = False) -> None:
     out_path = _path_modify(args.output_path)
     os.makedirs(out_path, exist_ok=True)
     out_name = args.output_file
     sample = _sample_name(args.sv_input)
-    events = bed_info_readin(args.sv_input)
-    if args.num_shards > 1:
-        events = [x for i, x in enumerate(events)
-                  if i % args.num_shards == args.shard_index]
+    if bed4:
+        events = bed4_info_readin(args.sv_input)
+        if args.sv_type:
+            structure_label = {
+                "/a": "DEL", "a/a^": "INV", "a/aa": "TANDUP",
+                "INS": "INS"}
+            events = [x for x in events
+                      if args.sv_type in structure_label.get(
+                          str(x[-1]), str(x[-1]))]
+        if args.size_cff:
+            events = [x for x in events
+                      if not isinstance(x[1], str)
+                      and x[2] - x[1] >= args.size_cff]
+    else:
+        events = bed_info_readin(args.sv_input)
+    events = _shard(events, args.shard_index, args.num_shards)
     done = _resume_keys(out_name) if args.resume else set()
     if not (args.resume and os.path.exists(out_name)):
         initiate_output(out_name)
@@ -182,6 +212,155 @@ def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
     run_pipelined(tasks, emit, args.pipeline)
 
 
+def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
+    out_path = _path_modify(args.output_path)
+    os.makedirs(out_path, exist_ok=True)
+    sample = _sample_name(args.sv_input)
+    vcf_list, rec_hash = vcf_list_readin(args.sv_input)
+    out_name = args.sv_input + ".vapor"
+    initiate_output(out_name)
+
+    def emit(key: Optional[str], scores) -> None:
+        if key is None:
+            return
+        append_result_row(out_name, organize_result(key, scores))
+
+    def fig(kind: str, key: str) -> str:
+        return out_path + sample + "." + kind + "." + \
+            key.replace(":", "__") + ".png"
+
+    tasks = []
+    for sv_type in list(vcf_list.keys()):
+        for y in _shard(vcf_list[sv_type], args.shard_index,
+                        args.num_shards):
+            if "NA" in y:
+                continue
+
+            def task(sv_type=sv_type, y=y):
+                print(y)
+                if sv_type == "DEL":
+                    key = ":".join([str(i) for i in y] + ["DEL"])
+                    if y[2] - y[1] < DEFAULT_CONFIG.min_sv_span:
+                        return key, []
+                    return key, (yield from ctx.validate_del_gen(
+                        num_reads_cff, y, fig("DEL", key)))
+                if sv_type == "INV":
+                    if y[2] - y[1] < DEFAULT_CONFIG.min_sv_span:
+                        # the reference labels the sub-50 INV NA row DEL
+                        # (vapor:409)
+                        return ":".join([str(i) for i in y]
+                                        + ["DEL"]), []
+                    key = ":".join([str(i) for i in y] + ["INV"])
+                    return key, (yield from ctx.validate_inv_gen(
+                        num_reads_cff, y, fig("INV", key)))
+                if sv_type == "INS":
+                    key = ":".join([str(i) for i in y[:3] + ["INS"]])
+                    ins_pos = "_".join(str(i) for i in y[:2])
+                    # reference quirk (vapor:425-426): INS worklist
+                    # entries always carry 4 fields, so a record
+                    # without SEQ= gets an *empty* insert sequence
+                    # (flank 0 -> NA), never the X-run fallback
+                    ins_seq = y[-1] if len(y) == 4 else "X" * y[2]
+                    return key, (yield from ctx.validate_ins_gen(
+                        num_reads_cff, ins_pos, ins_seq, "+",
+                        fig("INS", key)))
+                if sv_type == "DISDUP":
+                    key = ":".join([str(i) for i in y] + ["DISDUP"])
+                    return key, (yield from ctx.validate_disdup_gen(
+                        num_reads_cff, y, fig("DISDUP", key)))
+                if sv_type == "DEL_INV":
+                    key = ":".join(["_".join(str(i) for i in blk)
+                                    for blk in y] + ["DEL_INV"])
+                    return key, (yield from ctx.validate_del_inv_gen(
+                        num_reads_cff, y, fig("DEL_INV", key)))
+                if sv_type == "DUP_INV":
+                    key = ":".join([str(i) for i in y] + ["DUP_INV"])
+                    return key, (yield from ctx.validate_dup_inv_gen(
+                        num_reads_cff, y, fig("DUP_INV", key)))
+                if sv_type == "TANDUP":
+                    if args.validate_vcf_tandup:
+                        key = ":".join([str(i) for i in y] + ["TANDUP"])
+                        return key, (yield from ctx.validate_tandup_gen(
+                            num_reads_cff, y, fig("TANDUP", key)))
+                    # reference quirk: the VCF flow has no TANDUP
+                    # branch (vapor:387-465); DUP/tandup records are
+                    # parsed but never validated and emit no row
+                    print(sv_type)
+                    return None, None
+                if sv_type == "Other":
+                    key = ":".join([str(i) for i in y]
+                                   + ["CANNOT_CLASSIFY"])
+                    return key, (yield from ctx.validate_complex_gen(
+                        num_reads_cff, y, fig("CANNOT_CLASSIFY", key)))
+                return None, None
+            tasks.append(task)
+
+    run_pipelined(tasks, emit, args.pipeline)
+    annotate_vcf(args.sv_input, invert_record_keys(rec_hash))
+
+
+def run_ins(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
+    """MELT prefix mode (semantics of vapor_pdf:43-108)."""
+    from .io.fasta import FastaFile
+    out_path = _path_modify(args.output_path)
+    os.makedirs(out_path, exist_ok=True)
+    prefix = args.sv_input
+    sample = prefix.split("/")[-1].split(".")[0]
+    seq_fa = FastaFile(prefix + ".fa") if os.path.exists(prefix + ".fa") \
+        else None
+
+    def fetch_entry(name: str) -> str:
+        if seq_fa is None or name not in seq_fa.references:
+            return ""
+        return seq_fa.fetch(name, 1, seq_fa.contig_length(name))
+
+    out_name = prefix + ".vapor"
+    initiate_output(out_name)
+    records = _shard(melt_records(prefix, fetch_entry), args.shard_index,
+                     args.num_shards)
+
+    def task(key_event, ins_seq, polarity):
+        return key_event, (yield from ctx.validate_ins_gen(
+            num_reads_cff, key_event, ins_seq, polarity,
+            out_path + sample + ".INS."
+            + key_event.replace(":", "__") + ".png"))
+
+    def emit(key_event, scores):
+        append_result_row(out_name, organize_result(key_event, scores))
+
+    run_pipelined([functools.partial(task, *rec) for rec in records],
+                  emit, args.pipeline)
+
+
+def run_svelter(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
+    out_path = _path_modify(args.output_path)
+    os.makedirs(out_path, exist_ok=True)
+    out_name = args.output_file
+    sample = _sample_name(args.sv_input)
+    svelter_hash = svelter_readin(args.sv_input)
+    tasks = []
+    for ref_struct in list(svelter_hash.keys()):
+        for alt_struct in list(svelter_hash[ref_struct].keys()):
+            for bps in _shard(svelter_hash[ref_struct][alt_struct],
+                              args.shard_index, args.num_shards):
+
+                def task(ref_struct=ref_struct, alt_struct=alt_struct,
+                         bps=bps):
+                    key_event = "." + "_".join(bps)
+                    fig = out_path + sample + \
+                        key_event.replace(":", "__") + ".png"
+                    sv_info = [ref_struct, alt_struct] + bps
+                    print(sv_info)
+                    return key_event, (yield from ctx.validate_complex_gen(
+                        num_reads_cff, sv_info, fig))
+                tasks.append(task)
+
+    def emit(key_event, scores):
+        append_result_row(out_name, organize_result(key_event, scores))
+
+    run_pipelined(tasks, emit, args.pipeline)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     unported = [flag for flag, on in (
@@ -198,7 +377,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"vapor-tpu-torch: reference FASTA not found: "
               f"{args.reference}", file=sys.stderr)
         return 2
-    if not os.path.exists(args.sv_input):
+    if args.mode != "ins" and not os.path.exists(args.sv_input):
         print(f"vapor-tpu-torch: SV input not found: {args.sv_input}",
               file=sys.stderr)
         return 2
@@ -209,7 +388,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     except RuntimeError as exc:      # CUDA asked for and absent
         print(f"vapor-tpu-torch: {exc}", file=sys.stderr)
         return 2
-    run_bed(args, ctx, num_reads_cff, fig_ext=args.figure_format)
+    if args.mode == "bed":
+        run_bed(args, ctx, num_reads_cff, fig_ext=args.figure_format)
+    elif args.mode == "pdf":
+        # vapor_pdf twin: 4-column BED, default min-reads 10, PDF figures,
+        # output written next to the input (vapor_pdf:92-138)
+        if not args.PB_supp:
+            num_reads_cff = 10
+        args.output_file = args.output_file or args.sv_input + ".vapor"
+        run_bed(args, ctx, num_reads_cff, fig_ext="pdf", bed4=True)
+    elif args.mode == "vcf":
+        run_vcf(args, ctx, num_reads_cff)
+    elif args.mode == "ins":
+        run_ins(args, ctx, num_reads_cff)
+    else:
+        run_svelter(args, ctx, num_reads_cff)
     return 0
 
 

@@ -3,7 +3,7 @@
 Per (read, haplotype) row the engine needs a few exact integers: hit
 counts, the first and last hap row with a hit, and moment sums over the
 hits that survive the reference's 1-D gap-cluster cleaning.  The work
-splits into four kernels (engine/kernels) with small torch steps between
+splits into six kernels (engine/kernels) with small torch steps between
 them, all on the caller's device:
 
 1. ``pack_codes`` / ``rc_dot_codes``: each k-mer becomes ceil(k/8) int32
@@ -14,8 +14,11 @@ them, all on the caller's device:
 3. ``kept_table``: gap clustering of a histogram into a keep table;
 4. ``left_hist`` (w10, del): the anti-diagonal histogram of the hits the
    diagonal table drops, for the within-10% second stage;
-5. ``moment`` (m1b, w10) / ``moment2`` (del): moment sums over the cells
-   whose bins are kept.
+   ``kept_hist`` (rdd): the diagonal histogram of the kept hits, from
+   which ``intercept_z`` fits each row's intercept on the device;
+5. ``moment`` (m1b, w10) / ``moment2`` (del) / ``rdd_moment`` (rdd):
+   moment sums over the cells whose bins are kept (rdd adds the
+   selection sums around the intercept).
 
 Only the packed per-row integers go to the host, which finishes the
 float math in f64 exactly like the oracle.
@@ -50,7 +53,7 @@ _NIB_LUT = np.full(256, 15, dtype=np.int64)
 for _i, _c in enumerate(_NIB_BYTES):
     _NIB_LUT[_c] = _i
 
-MODES = ("m1b", "w10", "del")
+MODES = ("m1b", "w10", "del", "rdd")
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +155,71 @@ def kept_table(h: torch.Tensor, gap: int, thr: int,
 
 
 # ---------------------------------------------------------------------------
+# most-abundant intercept (pyx:582-591, exact integers)
+# ---------------------------------------------------------------------------
+
+_FAR = 2 ** 30      # stands for "no value" in the min/max scans
+
+
+def _bins(v, lo, hi):
+    """Bin index 0..10 of each value: the number of t in 1..10 with
+    10 (v - lo) >= t (hi - lo)."""
+    b = torch.zeros(torch.broadcast_shapes(v.shape, lo.shape),
+                    dtype=torch.int64, device=v.device)
+    for t in range(1, 11):
+        b += 10 * (v - lo) >= t * (hi - lo)
+    return b
+
+
+def intercept_z(h: torch.Tensor, H: int):
+    """(B, W) d-histograms over bins j - i + H -> (found (B,) bool,
+    z (B,) int64), z twice the re-centering intercept of each row.
+
+    Two levels of 11 bins and a weighted median, in exact integers: the
+    values v = bin - H with a count are binned between their min and max;
+    each bin of the largest total is binned again between its own min and
+    max; z is v1 + v2, the values at ranks (n - 1) // 2 + 1 and n // 2 + 1
+    of the sub-bin of the largest total.  A row finds an intercept only
+    when it is not empty and exactly one sub-bin wins over all winning
+    bins; otherwise z is 0.  Stays on the tensors' device (no host sync).
+    """
+    B, W = h.shape
+    h = h.long()
+    v = (torch.arange(W, device=h.device) - H).expand(B, W)
+    nz = h > 0
+    lo = torch.where(nz, v, _FAR).amin(1, keepdim=True)
+    hi = torch.where(nz, v, -_FAR).amax(1, keepdim=True)
+    hz = torch.where(nz, h, 0)
+    b1 = _bins(v, lo, hi)
+    counts1 = torch.zeros((B, 11), dtype=torch.int64,
+                          device=h.device).scatter_add_(1, b1, hz)
+    win1 = counts1 == counts1.amax(1, keepdim=True)
+    # every first-level bin t at once: (B, 11, W)
+    in_bin = nz[:, None, :] & (b1[:, None, :] ==
+                               torch.arange(11, device=h.device)[:, None])
+    vv = v[:, None, :]
+    s_lo = torch.where(in_bin, vv, _FAR).amin(2, keepdim=True)
+    s_hi = torch.where(in_bin, vv, -_FAR).amax(2, keepdim=True)
+    b2 = _bins(vv, s_lo, s_hi)
+    h_in = torch.where(in_bin, h[:, None, :], 0)
+    counts2 = torch.zeros((B, 11, 11), dtype=torch.int64,
+                          device=h.device).scatter_add_(2, b2, h_in)
+    top2 = counts2 == counts2.amax(2, keepdim=True)
+    n_win2 = top2.sum(2)
+    wb = top2.int().argmax(2, keepdim=True)      # first winning sub-bin
+    hsel = torch.where(b2 == wb, h_in, 0)
+    n = hsel.sum(2, keepdim=True)
+    cums = hsel.cumsum(2)
+    v1 = torch.where(cums >= (n - 1) // 2 + 1, vv, _FAR).amin(2)
+    v2 = torch.where(cums >= n // 2 + 1, vv, _FAR).amin(2)
+    n_wins = torch.where(win1, n_win2, 0)
+    pick = (n_wins > 0).int().argmax(1, keepdim=True)
+    found = (h.sum(1) > 0) & (n_wins.sum(1) == 1)
+    z = torch.where(found, (v1 + v2).gather(1, pick)[:, 0], 0)
+    return found, z
+
+
+# ---------------------------------------------------------------------------
 # per-row statistics
 # ---------------------------------------------------------------------------
 
@@ -164,18 +232,19 @@ def row_codes(haps, reads, rlens, k: int):
 
 def fused_rows(haps, reads, rlens, ms, k: int, scorer: str):
     """Statistics of each (read, hap) row; the counterpart of the JAX
-    engine's per-row ``_fused_one`` for modes m1b, w10 and del.
+    engine's per-row ``_fused_one`` for modes m1b, w10, del and rdd.
 
-    -> h_d, h_a (B, W) int32 histograms and packed (B, 7 or 10) int64
-    rows [n_f, n_r, i_min, i_max, cnt, sum_absd, w10] (+ [cnt2,
-    sum_absd2, w10_2] for del, the within-10% set)."""
+    -> h_d, h_a (B, W) int32 histograms and packed int64 rows
+    [n_f, n_r, i_min, i_max, cnt, sum_absd, w10] (7 columns), followed
+    for del by [cnt2, sum_absd2, w10_2] (the within-10% set) and for rdd
+    by [sel_cnt, sel_pos, sel_neg] (w10 is 0 there); FusedStats decodes
+    them by mode."""
     if scorer not in MODES:
-        raise NotImplementedError(
-            f"device mode {scorer!r} is not ported yet: the rdd kernels "
-            "(kept_hist, rdd_moment) come in the next slice")
+        raise ValueError(f"unknown device mode {scorer!r}; want one of "
+                         f"{MODES}")
     codes = (*row_codes(haps, reads, rlens, k), ms, rlens, k)
     h_d, h_a, scal = kernels.hist(*codes)
-    if scorer in ("m1b", "del"):
+    if scorer in ("m1b", "del", "rdd"):
         kd = kept_table(h_d, 10, 10, False)
         ka = kept_table(h_a, 10, 10, False)
     if scorer in ("w10", "del"):
@@ -185,8 +254,15 @@ def fused_rows(haps, reads, rlens, ms, k: int, scorer: str):
         mom = kernels.moment(*codes, kd, ka, want_w10=False)
     elif scorer == "w10":
         mom = kernels.moment(*codes, kd50, ka50, want_w10=True)
-    else:
+    elif scorer == "del":
         mom = kernels.moment2(*codes, kd, ka, kd50, ka50)
+    else:
+        # the histogram holds j - i = d - m: shift the median back only
+        # when an intercept was found (no intercept means z = 0)
+        found, z = intercept_z(kernels.kept_hist(*codes, kd, ka),
+                               haps.shape[1])
+        z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
+        mom = kernels.rdd_moment(*codes, kd, ka, z)
     return h_d, h_a, torch.cat([scal.long(), mom], 1)
 
 
@@ -232,10 +308,13 @@ def fused_batch(haps, reads, rlens, ms, k_idx: int, H: int, R: int,
 # ---------------------------------------------------------------------------
 
 class FusedStats:
-    """Exact-integer host view of one fused batch (the packed rows cross
-    to the host in one copy; the histograms stay on the device)."""
+    """Exact-integer host view of one fused batch of device mode `mode`
+    (the packed rows cross to the host in one copy; the histograms stay
+    on the device)."""
 
-    def __init__(self, h_d, h_a, packed):
+    def __init__(self, h_d, h_a, packed, mode: str):
+        if mode not in MODES:
+            raise ValueError(f"unknown device mode {mode!r}")
         self.h_d, self.h_a = h_d, h_a
         p = packed.cpu().numpy()
         self.n_dots = p[:, 0] + p[:, 1]
@@ -244,10 +323,10 @@ class FusedStats:
         self.cnt = p[:, 4]
         self.sum_absd = p[:, 5]
         self.w10 = p[:, 6]
-        if p.shape[1] >= 10:   # combined DEL mode: within-10% set
-            self.cnt2 = p[:, 7]
-            self.sum_absd2 = p[:, 8]
-            self.w10_2 = p[:, 9]
+        if mode == "del":      # the within-10% set
+            self.cnt2, self.sum_absd2, self.w10_2 = p[:, 7:10].T
+        elif mode == "rdd":    # the selection block around the intercept
+            self.sel_cnt, self.sel_pos, self.sel_neg = p[:, 7:10].T
 
     def span(self, b: int) -> int:
         if self.n_dots[b] == 0:
@@ -376,10 +455,10 @@ class FusedBackend:
         m1b = [None] * n_reads
         w10 = [None] * n_reads
         for idxs, d_ref_u, d_alt_u, d_ref_r, d_alt_r in pend:
-            su_ref = FusedStats(*d_ref_u.result())
-            su_alt = FusedStats(*d_alt_u.result())
-            sr_ref = FusedStats(*d_ref_r.result())
-            sr_alt = FusedStats(*d_alt_r.result())
+            su_ref = FusedStats(*d_ref_u.result(), "del")
+            su_alt = FusedStats(*d_alt_u.result(), "del")
+            sr_ref = FusedStats(*d_ref_r.result(), "del")
+            sr_alt = FusedStats(*d_alt_r.result(), "del")
             for b, i in enumerate(idxs):
                 nr, na = int(su_ref.n_dots[b]), int(su_alt.n_dots[b])
                 if not (nr > 2 and na > 2) or not \
@@ -428,13 +507,8 @@ class FusedBackend:
                           alt_seq: str, reads: Sequence[Sequence],
                           window: int):
         """Dispatches scoring without blocking; returns a zero-arg
-        finisher.  redefine_diagonal raises: its device mode (rdd) is
-        not ported yet, and no other route stands in for it."""
-        if scorer == "redefine_diagonal":
-            raise NotImplementedError(
-                "redefine_diagonal needs the rdd device mode (kernels "
-                "kept_hist and rdd_moment), which comes in the next "
-                "slice of the port")
+        finisher.  Only abs_dis_m1b scores upper-cased haps; the
+        within-10% and redefine-diagonal scorers see them as given."""
         if not reads:
             return lambda: []
         if scorer in ("abs_dis_m1", "abs_dis_m2"):
@@ -454,7 +528,8 @@ class FusedBackend:
             out = [oracle.SCORERS[scorer](ref_seq, alt_seq, r[0], r[1],
                                           window) for r in reads]
             return lambda: out
-        mode = {"abs_dis_m1b": "m1b", "within_10perc_m1b": "w10"}[scorer]
+        mode = {"abs_dis_m1b": "m1b", "within_10perc_m1b": "w10",
+                "redefine_diagonal": "rdd"}[scorer]
         hr = self._encode_hap(ref_s, H_r)
         ha = self._encode_hap(alt_s, H_a)
         encs = [(idxs, self._encode_reads([reads[i] for i in idxs], R))
@@ -483,8 +558,8 @@ class FusedBackend:
                       ) -> List[List[float]]:
         out: List[List[float]] = [None] * n_reads
         for idxs, d_ref, d_alt in pend:
-            s_ref = FusedStats(*d_ref.result())
-            s_alt = FusedStats(*d_alt.result())
+            s_ref = FusedStats(*d_ref.result(), mode)
+            s_alt = FusedStats(*d_alt.result(), mode)
             for b, i in enumerate(idxs):
                 out[i] = self._score_pair(mode, ref_s, alt_s, s_ref,
                                           s_alt, b)
@@ -509,10 +584,28 @@ class FusedBackend:
                 return [float(s_ref.sum_absd[b]) / cr,
                         float(s_alt.sum_absd[b]) / ca]
             return [0, 0]
-        # w10
-        if not max(float(nr) / float(len(ref_s)),
-                   float(na) / float(len(alt_s))) > 0.1:
+        if mode == "w10":
+            if not max(float(nr) / float(len(ref_s)),
+                       float(na) / float(len(alt_s))) > 0.1:
+                return [0, 0]
+            if int(s_ref.cnt[b]) > 0 and int(s_alt.cnt[b]) > 0:
+                return [int(s_alt.w10[b]), int(s_ref.w10[b])]
             return [0, 0]
-        if int(s_ref.cnt[b]) > 0 and int(s_alt.cnt[b]) > 0:
-            return [int(s_alt.w10[b]), int(s_ref.w10[b])]
-        return [0, 0]
+        # rdd
+        if not (float(nr) / float(len(ref_s)) > 0.1 and
+                float(na) / float(len(alt_s)) > 0.1):
+            return [0, 0]
+        if not (float(s_ref.span(b)) / float(len(ref_s)) > 0.7
+                and float(s_alt.span(b)) / float(len(alt_s)) > 0.7):
+            return [0, 0]
+        if int(s_ref.cnt[b]) == 0 or int(s_alt.cnt[b]) == 0:
+            return [0, 0]
+        pair = []
+        for s in (s_ref, s_alt):
+            n_sel = int(s.sel_cnt[b])
+            if n_sel == 0:
+                pair.append(0.0001)
+            else:
+                total = float(int(s.sel_pos[b]) - int(s.sel_neg[b]))
+                pair.append(abs((total / 2.0) / n_sel))
+        return pair

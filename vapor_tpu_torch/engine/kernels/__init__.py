@@ -1,4 +1,4 @@
-"""The four dot-plot kernels, their wrappers and their plain versions.
+"""The six dot-plot kernels, their wrappers and their plain versions.
 
 Every kernel takes one batch of (read, haplotype) rows in packed k-mer
 codes (engine/fused.py builds them):
@@ -24,14 +24,14 @@ makes.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..constants import hist_width
 from . import build
 
-NAMES = ("hist", "left_hist", "moment", "moment2")
+NAMES = ("hist", "left_hist", "kept_hist", "moment", "moment2", "rdd_moment")
 LAUNCHES: Dict[str, int] = dict.fromkeys(NAMES, 0)
 PLAIN_CUDA_CALLS: Dict[str, int] = dict.fromkeys(NAMES, 0)
 
@@ -47,8 +47,10 @@ def reset_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def _check(ch, cf, cd, ms, rlens, k: int,
-           tables: Sequence[torch.Tensor] = ()) -> Tuple[int, int, int, int]:
-    """Validates one batch; returns (B, lanes, H, R)."""
+           tables: Sequence[torch.Tensor] = (),
+           z: Optional[torch.Tensor] = None) -> Tuple[int, int, int, int]:
+    """Validates one batch (and the per-row intercepts z, where given);
+    returns (B, lanes, H, R)."""
     if k not in (10, 20, 30, 40):
         raise ValueError(f"k must be 10, 20, 30 or 40, got {k}")
     if ch.dim() != 3:
@@ -65,6 +67,8 @@ def _check(ch, cf, cd, ms, rlens, k: int,
             ("rlens", rlens, torch.int32, (B,))]
     want += [(f"table{n}", t, torch.bool, (B, W))
              for n, t in enumerate(tables)]
+    if z is not None:
+        want.append(("z", z, torch.int32, (B,)))
     for name, t, dtype, shape in want:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
@@ -147,6 +151,17 @@ def left_hist_plain(ch, cf, cd, ms, rlens, k: int, keep_d):
     return h_a
 
 
+def kept_hist_plain(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a):
+    _note_plain("kept_hist", ch)
+    B, _, H = ch.shape
+    h_d = torch.zeros(keep_d.shape, dtype=torch.int32, device=ch.device)
+    for b, (i, j, f, r) in _rows(ch, cf, cd, ms, rlens, k):
+        d_bin = j - i + H
+        kept = keep_d[b][d_bin] | keep_a[b][j + i]
+        h_d[b].index_add_(0, d_bin[kept], (f + r)[kept].int())
+    return h_d
+
+
 def _moments(i, j, mult, m: int, kept, want_w10: bool):
     """[count, sum |d|, within-10% count] over kept hit cells."""
     mult = mult[kept]
@@ -179,6 +194,25 @@ def moment2_plain(ch, cf, cd, ms, rlens, k: int, keep_d1, keep_a1,
         kept2 = keep_d2[b][d_bin] | keep_a2[b][a_bin]
         mom[b, :3] = _moments(i, j, f + r, m, kept1, False)
         mom[b, 3:] = _moments(i, j, f + r, m, kept2, True)
+    return mom
+
+
+def rdd_moment_plain(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a, z):
+    _note_plain("rdd_moment", ch)
+    B, _, H = ch.shape
+    mom = torch.zeros((B, 6), dtype=torch.int64, device=ch.device)
+    for b, (i, j, f, r) in _rows(ch, cf, cd, ms, rlens, k):
+        kept = keep_d[b][j - i + H] | keep_a[b][j + i]
+        m, zb = int(ms[b]), int(z[b])
+        mom[b, :3] = _moments(i, j, f + r, m, kept, False)
+        mult = (f + r)[kept]
+        ip = i[kept] - m
+        val = zb - 2 * (j[kept] - ip)
+        den = (2 * ip + zb).abs()
+        den = torch.where(2 * ip + zb == 0, (2 * ip + zb + 2).abs(), den)
+        sel = mult * (10 * val.abs() > den)
+        mom[b, 3:] = torch.stack([sel.sum(), (sel * val.clamp(min=0)).sum(),
+                                  (sel * (-val).clamp(min=0)).sum()])
     return mom
 
 
@@ -217,6 +251,19 @@ def left_hist(ch, cf, cd, ms, rlens, k: int, keep_d):
     return h_a
 
 
+def kept_hist(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a):
+    """-> (B, W) int32 histogram over j - i + H of the hit multiplicity of
+    cells kept by keep_d | keep_a: the intercept fit's input."""
+    B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a))
+    if ch.device.type == "cpu":
+        return kept_hist_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a)
+    W = hist_width(H, R)
+    h_d = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
+    _launch("kept_hist", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
+            k, W, keep_d, keep_a, h_d)
+    return h_d
+
+
 def moment(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a,
            want_w10: bool):
     """-> (B, 3) int64 [count, sum |d|, within-10% count (0 unless
@@ -243,4 +290,21 @@ def moment2(ch, cf, cd, ms, rlens, k: int, keep_d1, keep_a1, keep_d2,
     mom = torch.zeros((B, 6), dtype=torch.int64, device=ch.device)
     _launch("moment2", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, hist_width(H, R), keep_d1, keep_a1, keep_d2, keep_a2, mom)
+    return mom
+
+
+def rdd_moment(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a, z):
+    """-> (B, 6) int64 [count, sum |d|, 0, sel count, sel pos, sel neg]
+    over cells kept by keep_d | keep_a, with d = j - (i - m) and the
+    row's intercept z (B,) int32: a kept cell is selected when
+    10 |z - 2d| > den, den = |2(i - m) + z| (|2(i - m) + z + 2| where
+    that is 0); sel pos and sel neg sum the positive and negative parts
+    of z - 2d over the selected cells.  Every sum is weighted by the
+    cell's hit multiplicity."""
+    B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a), z)
+    if ch.device.type == "cpu":
+        return rdd_moment_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a, z)
+    mom = torch.zeros((B, 6), dtype=torch.int64, device=ch.device)
+    _launch("rdd_moment", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
+            k, hist_width(H, R), keep_d, keep_a, z, mom)
     return mom

@@ -29,8 +29,10 @@ _TAIL = [_I, _P]                      # device index, stream
 ENTRY_POINTS = {
     "hist": ("vt_hist", _CODES + [_I, _P, _P, _P] + _TAIL),
     "left_hist": ("vt_left_hist", _CODES + [_I, _P, _P] + _TAIL),
+    "kept_hist": ("vt_kept_hist", _CODES + [_I, _P, _P, _P] + _TAIL),
     "moment": ("vt_moment", _CODES + [_I, _P, _P, _I, _P] + _TAIL),
     "moment2": ("vt_moment2", _CODES + [_I, _P, _P, _P, _P, _P] + _TAIL),
+    "rdd_moment": ("vt_rdd_moment", _CODES + [_I, _P, _P, _P, _P] + _TAIL),
 }
 
 _lock = threading.Lock()

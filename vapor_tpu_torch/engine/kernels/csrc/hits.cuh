@@ -1,5 +1,5 @@
-// Tile walk shared by the four dot-plot kernels (hist, left_hist, moment,
-// moment2).
+// Tile walk shared by the six dot-plot kernels (hist, left_hist,
+// kept_hist, moment, moment2, rdd_moment).
 //
 // A (read, haplotype) row is an H x R grid of cells (i, j): hap k-mer i
 // against read k-mer j.  Cell (i, j) holds a forward hit when the packed

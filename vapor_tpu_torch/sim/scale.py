@@ -1,18 +1,22 @@
-"""Synthetic bed worklist: one contig, DEL and INV calls, noisy long reads.
+"""Synthetic worklists: one contig, SV calls, noisy long reads.
 
-Made from a seed with numpy and written with the package's own FASTA,
-BAM and BAI writers, so a run needs no external genome.  Every event gets
-`reads_each` spanning reads, half from the donor haplotype (carrying the
-SV) and half from the reference (a het call), with PacBio-like noise:
-substitutions, insertions and deletions in equal parts at rate `err`.
-Reference reads carry CIGARs that follow their indels; donor reads carry
-an all-M CIGAR, which the read clipper only uses to find the window
-entry point.
+``build_event_worklist`` writes a bed worklist of DEL, INV and tandem-DUP
+calls; ``build_vcf_worklist`` a VCF of the duplication-bearing events
+that the vcf subcommand scores with the redefine-diagonal scorer
+(DISDUP, DUP_INV and a complex ``Other=`` event with a duplicated
+block).  Made from a seed with numpy and written with the package's own
+FASTA, BAM and BAI writers, so a run needs no external genome.  Every
+event gets READS_EACH spanning reads, half from the donor haplotype
+(carrying the SV) and half from the reference (a het call), with
+PacBio-like noise: substitutions, insertions and deletions in equal parts
+at rate ERR.  Reference reads carry CIGARs that follow their indels;
+donor reads carry an all-M CIGAR, which the read clipper only uses to
+find the window entry point.
 """
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -22,6 +26,28 @@ from ..io.fasta import write_fasta
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 _OPS = "MID"
+
+READS_EACH = 20      # spanning reads per event (ideal_read_list_length)
+ERR = 0.08           # PacBio-like error rate
+FLANK = 500          # reads enter the window left of start - FLANK ...
+LEAD = 1500          # ... by up to LEAD bp
+GAP = 2 * LEAD + 2 * FLANK + 2000   # between events
+# bed: DEL and INV at each body REPS times, one DEL and one INV of BIG bp
+# (junction mode), then tandem DUPs at each of DUP_BODIES REPS times
+BODIES = (400, 900, 1400, 3000, 6000, 9500)
+REPS = 2
+BIG = 25000
+DUP_BODIES = (400, 1400, 3000, 6000)
+# vcf: (kind, block length, distance from the block's end to the insert
+# point or, for Other, the second block's length) at a small and a large
+# size, each VCF_REPS times, smallest first
+VCF_SIZES = ((("DISDUP", 300, 600), ("DUP_INV", 300, 600),
+              ("Other", 300, 400)),
+             (("DISDUP", 1500, 2500), ("DUP_INV", 1200, 2000),
+              ("Other", 1000, 1500)))
+VCF_REPS = 4
+VCF_EVENTS = tuple(ev for size in VCF_SIZES for _ in range(VCF_REPS)
+                   for ev in size)
 
 
 def _revcomp(codes: np.ndarray) -> np.ndarray:
@@ -57,52 +83,40 @@ def noisy_read(template: np.ndarray, rng: np.random.Generator,
     return out, _cigar(ops)
 
 
-def event_layout(bodies: Sequence[int], reps: int, big: int
-                 ) -> List[Tuple[str, int]]:
-    """(svtype, body) of every event: DEL and INV at each body, `reps`
-    times, then one DEL and one INV of `big` bp (junction mode)."""
-    out = [(t, body) for body in bodies for _ in range(reps)
+def event_layout() -> List[Tuple[str, int]]:
+    """(svtype, body) of every bed event, in order."""
+    out = [(t, body) for body in BODIES for _ in range(REPS)
            for t in ("DEL", "INV")]
-    return out + [("DEL", big), ("INV", big)]
+    return out + [("DEL", BIG), ("INV", BIG)] + \
+        [("DUP", body) for body in DUP_BODIES for _ in range(REPS)]
 
 
-def build_event_worklist(tmpdir: str, seed: int,
-                         bodies: Sequence[int] = (400, 900, 1400, 3000,
-                                                  6000, 9500),
-                         reps: int = 2, big: int = 25000,
-                         reads_each: int = 20, err: float = 0.08,
-                         flank: int = 500, lead: int = 1500):
-    """Writes ref.fa (+ .fai), reads.bam (+ .bai) and svs.bed under
-    tmpdir.  Returns (fasta, bam, bed, events) with events a list of
-    (svtype, start0, end0)."""
-    rng = np.random.default_rng(seed)
-    layout = event_layout(bodies, reps, big)
-    gap = 2 * lead + 2 * flank + 2000
-    genome_len = sum(body + gap for _, body in layout) + gap
-    ref = rng.integers(0, 4, genome_len).astype(np.uint8)
-    reads, events, pos = [], [], gap
-    for svtype, body in layout:
-        s0, e0 = pos, pos + body
-        pos = e0 + gap
-        if svtype == "DEL":
-            donor = np.concatenate([ref[:s0], ref[e0:]])
-        else:
-            donor = np.concatenate([ref[:s0], _revcomp(ref[s0:e0]),
-                                    ref[e0:]])
-        # whole-event mode needs reads through e0 + flank; junction mode
-        # only around s0
-        span = body if body < 10000 else 0
-        read_len = span + 2 * flank + lead + 1000
-        for r in range(reads_each):
-            start = int(rng.integers(s0 - flank - lead, s0 - flank - 100))
-            from_donor = r % 2 == 0
-            template = (donor if from_donor else ref)[start:start + read_len]
-            seq, cigar = noisy_read(template, rng, err)
-            if from_donor:
-                cigar = f"{seq.size}M"
-            reads.append((start, seq, cigar))
-        events.append((svtype, s0, e0))
-    reads.sort(key=lambda x: x[0])
+def _donor(ref: np.ndarray, svtype: str, s0: int, e0: int) -> np.ndarray:
+    if svtype == "DEL":
+        return np.concatenate([ref[:s0], ref[e0:]])
+    if svtype == "INV":
+        return np.concatenate([ref[:s0], _revcomp(ref[s0:e0]), ref[e0:]])
+    return np.concatenate([ref[:e0], ref[s0:e0], ref[e0:]])      # DUP
+
+
+def _span_reads(ref, donor, anchor: int, read_len: int,
+                rng: np.random.Generator
+                ) -> List[Tuple[int, np.ndarray, str]]:
+    """(pos0, codes, CIGAR) of READS_EACH reads entering the window left
+    of anchor - FLANK, alternately from the donor and the reference."""
+    out = []
+    for r in range(READS_EACH):
+        start = int(rng.integers(anchor - FLANK - LEAD, anchor - FLANK - 100))
+        from_donor = r % 2 == 0
+        template = (donor if from_donor else ref)[start:start + read_len]
+        seq, cigar = noisy_read(template, rng, ERR)
+        out.append((start, seq, f"{seq.size}M" if from_donor else cigar))
+    return out
+
+
+def _write(tmpdir: str, ref: np.ndarray, reads) -> Tuple[str, str]:
+    """Writes ref.fa (+ .fai) and a sorted, indexed reads.bam."""
+    reads = sorted(reads, key=lambda x: x[0])
     contig = "chrE"
     records = [BamRecord(name=f"r{i}", flag=0, ref_id=0, pos0=p, mapq=60,
                          cigar=cigar, seq=BASES[seq].tobytes().decode(),
@@ -110,11 +124,87 @@ def build_event_worklist(tmpdir: str, seed: int,
                for i, (p, seq, cigar) in enumerate(reads)]
     fa = os.path.join(tmpdir, "ref.fa")
     bam = os.path.join(tmpdir, "reads.bam")
-    bed = os.path.join(tmpdir, "svs.bed")
     write_fasta(fa, {contig: BASES[ref].tobytes().decode()})
-    write_bam(bam, [(contig, genome_len)], records)
+    write_bam(bam, [(contig, ref.size)], records)
     write_bai(bam)
+    return fa, bam
+
+
+def build_event_worklist(tmpdir: str, seed: int):
+    """Writes ref.fa (+ .fai), reads.bam (+ .bai) and svs.bed under
+    tmpdir.  Returns (fasta, bam, bed, events) with events a list of
+    (svtype, start0, end0).  A tandem DUP's alt haplotype is
+    2 x body + 2 x flank, and its reads run through s + 2 (e - s) +
+    flank: at the largest of DUP_BODIES (6000) both fit the largest
+    bucket, 16384."""
+    rng = np.random.default_rng(seed)
+    layout = event_layout()
+    # a DUP's reads reach one body further right: so does its gap
+    genome_len = sum(body * (2 if t == "DUP" else 1) + GAP
+                     for t, body in layout) + GAP
+    ref = rng.integers(0, 4, genome_len).astype(np.uint8)
+    reads, events, pos = [], [], GAP
+    for svtype, body in layout:
+        s0, e0 = pos, pos + body
+        pos = e0 + GAP + (body if svtype == "DUP" else 0)
+        # whole-event mode needs reads through the event's right flank
+        # (e0 + flank, for a DUP s0 + 2 body + flank); junction mode only
+        # around s0
+        span = (2 * body if svtype == "DUP" else body) if body < 10000 \
+            else 0
+        reads += _span_reads(ref, _donor(ref, svtype, s0, e0), s0,
+                             span + 2 * FLANK + LEAD + 1000, rng)
+        events.append((svtype, s0, e0))
+    fa, bam = _write(tmpdir, ref, reads)
+    bed = os.path.join(tmpdir, "svs.bed")
     with open(bed, "w") as fh:
-        fh.write("".join(f"{contig}\t{s}\t{e}\tSV{i}\t{t}\n"
+        fh.write("".join(f"chrE\t{s}\t{e}\tSV{i}\t{t}\n"
                          for i, (t, s, e) in enumerate(events)))
     return fa, bam, bed, events
+
+
+def build_vcf_worklist(tmpdir: str, seed: int):
+    """Writes ref.fa (+ .fai), reads.bam (+ .bai) and svs.vcf under
+    tmpdir: one record per event, in the INFO forms the vcf subcommand
+    parses (SVTYPE=disdup / dup_inv with insert_point=, and
+    Other=ab/ab_aab/ab_<chrom>:<s>:<m>:<e>, block a duplicated in
+    place).  Returns (fasta, bam, vcf, events) with events a list of
+    (kind, start0, end0, third coordinate)."""
+    rng = np.random.default_rng(seed)
+    genome_len = sum(2 * (a + b) + GAP for _, a, b in VCF_EVENTS) + GAP
+    ref = rng.integers(0, 4, genome_len).astype(np.uint8)
+    reads, out, records, pos = [], [], [], GAP
+    for n, (kind, a, b) in enumerate(VCF_EVENTS):
+        s0, e0, third = pos, pos + a, pos + a + b
+        block = ref[s0:e0]
+        if kind == "DISDUP":      # a b a: block a copied to `third`
+            donor = np.concatenate([ref[:third], block, ref[third:]])
+            info = (f"SVTYPE=disdup;END={e0};"
+                    f"insert_point=chrE:{third}")
+        elif kind == "DUP_INV":   # a b a^: inverted copy at `third`
+            donor = np.concatenate([ref[:third], _revcomp(block),
+                                    ref[third:]])
+            info = (f"SVTYPE=dup_inv;END={e0};"
+                    f"insert_point=chrE:{third}")
+        else:                     # ab -> aab over blocks a = [s0, e0), b
+            donor = np.concatenate([ref[:e0], block, ref[e0:]])
+            info = (f"SVTYPE=cannot_classify;END={third};"
+                    f"Other=ab/ab_aab/ab_chrE:{s0}:{e0}:{third}")
+        # the scorers' read windows end past the event by one block
+        read_len = (third - s0) + a + 2 * FLANK + LEAD + 1000
+        reads += _span_reads(ref, donor, s0, read_len, rng)
+        records.append(f"chrE\t{s0 + 1}\t{kind.lower()}{n}\tN\t<SV>\t99"
+                       f"\tPASS\t{info}\tGT\t0/1")
+        out.append((kind, s0, e0, third))
+        pos = third + a + GAP
+    fa, bam = _write(tmpdir, ref, reads)
+    vcf = os.path.join(tmpdir, "svs.vcf")
+    with open(vcf, "w") as fh:
+        fh.write("\n".join([
+            "##fileformat=VCFv4.2",
+            f"##contig=<ID=chrE,length={genome_len}>",
+            '##INFO=<ID=END,Number=1,Type=Integer,Description="End">',
+            '##INFO=<ID=SVTYPE,Number=1,Type=String,Description="Type">',
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tS1",
+            *records]) + "\n")
+    return fa, bam, vcf, out

@@ -7,8 +7,10 @@ and checks the output against the CPU and numpy-oracle runs.
 
     python3 chip_smoke.py [--seed N] [--reps N]
 
-Phases, each fatal on failure: 1 build, 2 input, 3 kernel parity and
-timing, 4 end to end on cuda (bed, then vcf), 5 CPU and oracle
+Phases, each fatal on failure: 1 build (nvcc's -Xptxas=-v report:
+registers, shared memory, spills), 2 input, 3 kernel parity and timing
+(at each mode's event sizes, and hist and rdd_moment also on dense-hit
+repeat rows), 4 end to end on cuda (bed, then vcf), 5 CPU and oracle
 cross-check, 6 kernel list.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and nvcc; exits non-zero without them.
@@ -16,9 +18,11 @@ Needs one CUDA card and nvcc; exits non-zero without them.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -50,6 +54,9 @@ REPLACES = {
 REPORT_AT = {"hist": SIZES[-1], "left_hist": SIZES[-1],
              "moment": SIZES[-1], "moment2": SIZES[-1],
              "kept_hist": DUP_SIZES[-1], "rdd_moment": DUP_SIZES[-1]}
+# H = R of the dense-hit repeat rows each walk kernel is also timed on:
+# the bucket of its reported shape
+REPEAT_AT = {"hist": 12544, "rdd_moment": 16384}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -63,6 +70,22 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def print_ptxas(name: str, log: str) -> None:
+    """One line per instance of the kernel (its lane count) from nvcc's
+    -Xptxas=-v report: registers, static shared memory, spills."""
+    for fn in log.split("Compiling entry function")[1:]:
+        lanes = re.search(r"_kernelILi(\d)E", fn)
+        regs = re.search(r"Used (\d+) registers", fn)
+        smem = re.search(r"(\d+) bytes smem", fn)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", fn)
+        print(f"ptxas {name}<{lanes.group(1) if lanes else '?'}>: "
+              f"{regs.group(1) if regs else '?'} registers, "
+              f"{smem.group(1) if smem else 0} bytes smem, spill stores "
+              f"{spill.group(1) if spill else '?'}, loads "
+              f"{spill.group(2) if spill else '?'}", flush=True)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -129,10 +152,10 @@ def _bound(name: str, codes, outs, tables, hits: int):
         "bytes" if t_bytes > t_ops else "operations"
 
 
-def _compare(name, body, k, codes, hits, tables, kern, plain, reps,
-             report):
+def _measure(name, codes, hits, tables, kern, plain, reps, label):
     """Holds one kernel against its plain version (every output integer
-    equal) and times both; keeps the numbers of the reported shape."""
+    equal), times both and prints one line.  Returns (max |diff|, ms,
+    plain ms, bound ms, bounded by)."""
     import torch
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -140,15 +163,26 @@ def _compare(name, body, k, codes, hits, tables, kern, plain, reps,
     want = want if isinstance(want, tuple) else (want,)
     err = max(int((g.long() - w.long()).abs().max())
               for g, w in zip(got, want))
-    _require(err == 0, f"{name} differs from its plain version at body "
-             f"{body}, k={k}: max |diff| {err}")
+    B, H, R, k = (codes[0].shape[0], codes[0].shape[2], codes[1].shape[2],
+                  codes[5])
+    _require(err == 0, f"{name} differs from its plain version on {label} "
+             f"rows, H={H}, R={R}, k={k}: max |diff| {err}")
     ms_k = _time_ms(kern, reps)
     ms_p = _time_ms(plain, 1)
     bound, bound_by = _bound(name, codes, got, tables, hits)
-    B, H, R = codes[0].shape[0], codes[0].shape[2], codes[1].shape[2]
-    print(f"parity {name:10s} B={B:2d} H={H:5d} R={R:5d} k={k}: "
+    print(f"parity {name:10s} {label} B={B:2d} H={H:5d} R={R:5d} k={k}: "
           f"equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, "
-          f"bound {bound:.4f} ms", flush=True)
+          f"bound {bound:.4f} ms, {hits} hits", flush=True)
+    return err, ms_k, ms_p, bound, bound_by
+
+
+def _compare(name, body, k, codes, hits, tables, kern, plain, reps,
+             report):
+    """_measure on the rows of one event; keeps the numbers of the
+    reported shape."""
+    err, ms_k, ms_p, bound, bound_by = _measure(
+        name, codes, hits, tables, kern, plain, reps, f"body {body}")
+    B, H, R = codes[0].shape[0], codes[0].shape[2], codes[1].shape[2]
     prev = report.get(name, {"max_abs_err": 0})
     entry = {"max_abs_err": max(prev["max_abs_err"], err)}
     if body == REPORT_AT[name] and k == 10:
@@ -235,6 +269,59 @@ def kernel_parity(fa, bam, events, reps: int):
     return report
 
 
+def repeat_parity(seed: int, reps: int, report) -> None:
+    """hist and rdd_moment against their plain versions on dense-hit rows
+    (sim/scale.py repeat_rows: a third of every hap and read is one 6 bp
+    unit repeated) at B=20, H=R = the kernel's reported size, k=10; adds
+    the kernel's time there to its report."""
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.fused import (batch_from_numpy, intercept_z,
+                                              kept_table, row_codes)
+    from vapor_tpu_torch.sim.scale import repeat_rows
+    k = 10
+    for name, size in REPEAT_AT.items():
+        h, r, rl, m, _ = batch_from_numpy(
+            *repeat_rows(size, size, 20, seed, ms=(0, 23)), k // 10 - 1,
+            torch.device("cuda"))
+        codes = (*row_codes(h, r, rl, k), m, rl, k)
+        h_d, h_a, scal = kernels.hist_plain(*codes)
+        hits = int(scal[:, :2].sum())
+        if name == "hist":
+            tables = ()
+            kern = functools.partial(kernels.hist, *codes)
+            plain = functools.partial(kernels.hist_plain, *codes)
+        else:
+            kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
+            found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka),
+                                   size)
+            z = torch.where(found, z + 2 * m, 0).to(torch.int32)
+            tables = (kd, ka, z)
+            kern = functools.partial(kernels.rdd_moment, *codes, *tables)
+            plain = functools.partial(kernels.rdd_moment_plain, *codes,
+                                      *tables)
+        err, ms_k, _, bound, _ = _measure(name, codes, hits, tables, kern,
+                                          plain, reps, "repeat")
+        report[name].update(
+            max_abs_err=max(report[name]["max_abs_err"], err),
+            repeat_ms=ms_k, repeat_bound_ms=bound)
+
+
+def walk_waves(report) -> None:
+    """Prints the grid of each strip-walk kernel (csrc/walk.cuh) at its
+    reported shape, B=20, k=10, and its waves: blocks over the blocks
+    the card holds at once."""
+    import torch
+    from vapor_tpu_torch.engine.kernels import build
+    for name, size in REPEAT_AT.items():
+        blocks, per_sm, sms, strip = build.grid_info(
+            name, 20, size, size, 2, torch.cuda.current_device())
+        waves = blocks / (per_sm * sms)
+        print(f"grid {name}: {blocks} blocks of {strip} hap rows, {per_sm} "
+              f"resident per SM x {sms} SMs: {waves:.2f} waves", flush=True)
+        report[name]["waves"] = waves
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the CLI
 # ---------------------------------------------------------------------------
@@ -310,8 +397,10 @@ def main() -> int:
           f"card {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    build.build()
+    logs = build.build(extra_flags=["-Xptxas=-v"])
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        print_ptxas(name, log)
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -324,6 +413,8 @@ def main() -> int:
               flush=True)
 
         report = kernel_parity(fa, bam, events, args.reps)
+        repeat_parity(args.seed, args.reps, report)
+        walk_waves(report)
         print("phase 3 kernel parity: all equal", flush=True)
 
         # bed: DEL (del, w10 junction), INV (m1b, w10 junction) and DUP
@@ -412,7 +503,9 @@ def main() -> int:
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name]["bound_by"],
-         "library_ms": None, "shape": report[name]["shape"]}
+         "library_ms": None, "shape": report[name]["shape"],
+         **{x: report[name][x] for x in ("repeat_ms", "repeat_bound_ms",
+                                         "waves") if x in report[name]}}
         for name in kernels.NAMES]}))
     print(_card_line())
     print(json.dumps({"ok": True, "device": {

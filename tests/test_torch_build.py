@@ -1,0 +1,110 @@
+"""vapor_tpu_torch's kernel build cache and the strip walk's sentinels,
+on the CPU (no nvcc needed).
+
+* build.library_path names a kernel's library by a hash of the flags,
+  its source and every header in csrc/, so an edited header is never
+  served from a stale library.
+* csrc/walk.cuh masks rows and columns with sentinel code words; no
+  code on the other side of a compare may hold them, or a masked cell
+  would wake the walk's fast path (the rare path re-tests the bounds,
+  so counts would stay exact, but slow).
+"""
+import os
+import re
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from vapor_tpu_torch.engine import fused, oracle
+from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD
+from vapor_tpu_torch.engine.kernels import build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A private copy of csrc/ that build reads in place of the real one."""
+    root = str(tmp_path / "csrc")
+    shutil.copytree(build.CSRC, root)
+    monkeypatch.setattr(build, "CSRC", root)
+    return root
+
+
+def _touch(path):
+    with open(path, "a") as fh:
+        fh.write("\n// edited\n")
+
+
+@pytest.mark.parametrize("header", ["walk.cuh", "hits.cuh", "new.cuh"])
+def test_library_path_follows_every_header(csrc, header):
+    before = {n: build.library_path(n) for n in build.ENTRY_POINTS}
+    _touch(os.path.join(csrc, header))
+    after = {n: build.library_path(n) for n in build.ENTRY_POINTS}
+    assert all(before[n] != after[n] for n in build.ENTRY_POINTS)
+
+
+def test_library_path_follows_its_own_source_only(csrc):
+    before = {n: build.library_path(n) for n in build.ENTRY_POINTS}
+    _touch(os.path.join(csrc, "moment.cu"))
+    after = {n: build.library_path(n) for n in build.ENTRY_POINTS}
+    assert [n for n in build.ENTRY_POINTS if before[n] != after[n]] == \
+        ["moment"]
+
+
+def _walk_constant(name):
+    with open(os.path.join(build.CSRC, "walk.cuh")) as fh:
+        hit = re.search(rf"constexpr unsigned {name} = (0x[0-9A-F]+)u;",
+                        fh.read())
+    return int(hit.group(1), 16)
+
+
+def _lane0(seqs, k, pad):
+    return fused.pack_codes(torch.as_tensor(seqs), k,
+                            pad)[:, 0].numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_walk_sentinels_are_the_pad_words(k):
+    """ROW_SENTINEL is lane 0 of a hap window wholly in HAP_PAD and
+    COL_SENTINEL that of a read window wholly in READ_PAD."""
+    assert _lane0(np.full((1, 64), HAP_PAD, np.uint8), k, HAP_PAD)[0, 0] \
+        == _walk_constant("ROW_SENTINEL")
+    assert _lane0(np.full((1, 64), READ_PAD, np.uint8), k, READ_PAD)[0, 0] \
+        == _walk_constant("COL_SENTINEL")
+
+
+def test_no_code_holds_the_other_sides_sentinel():
+    """Lane 0 packs 8 symbols, so a sentinel word needs 8 pad symbols.
+    A hap holds HAP_PAD symbols only past its end and never READ_PAD's;
+    an eligible read window (j <= rlen - k) holds only symbols of read
+    bytes, forward or complemented, never HAP_PAD's.  Shown for every
+    byte the CLI paths produce (key_modify's alphabet, X, x and =), then
+    on packed codes of random rows."""
+    alphabet = np.frombuffer(b"ACGTNacgtnXx=", np.uint8)
+    nib = fused._NIB_LUT
+    hap_pad, read_pad = nib[HAP_PAD], nib[READ_PAD]
+    assert hap_pad != read_pad
+    assert not np.isin(nib[alphabet], [hap_pad, read_pad]).any()
+    assert not np.isin(nib[oracle._COMP_LUT[alphabet]], [hap_pad]).any()
+
+    rng = np.random.default_rng(3)
+    H = R = 512
+    haps = np.full((4, H), HAP_PAD, np.uint8)
+    reads = np.full((4, R), READ_PAD, np.uint8)
+    rlens = np.array([R - 40, R - 7, 100, 13], np.int32)
+    for b in range(4):
+        haps[b, :H - 30] = alphabet[rng.integers(0, alphabet.size, H - 30)]
+        reads[b, :rlens[b]] = alphabet[rng.integers(0, alphabet.size,
+                                                    rlens[b])]
+    row_sentinel = _walk_constant("ROW_SENTINEL")
+    col_sentinel = _walk_constant("COL_SENTINEL")
+    for k in (10, 20, 30, 40):
+        ch, cf, cd = fused.row_codes(torch.as_tensor(haps),
+                                     torch.as_tensor(reads),
+                                     torch.as_tensor(rlens), k)
+        assert not (ch[:, 0].numpy().view(np.uint32) == col_sentinel).any()
+        ok = np.arange(R)[None, :] <= (rlens - k)[:, None]
+        for codes in (cf, cd):
+            lane0 = codes[:, 0].numpy().view(np.uint32)
+            assert not (lane0[ok] == row_sentinel).any()

@@ -4,14 +4,16 @@ and the fused engine on the card against the same engine on the CPU.
 Needs a CUDA card and nvcc: each test skips without one.  Run on the
 card with  python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
 from vapor_tpu_torch.engine import kernels
-from vapor_tpu_torch.engine.constants import READ_PAD
+from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD
 from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
                                           intercept_z, kept_table,
                                           row_codes)
+from vapor_tpu_torch.sim.scale import repeat_rows
 from torch_rows import random_rows
 
 pytestmark = pytest.mark.cuda
@@ -64,6 +66,54 @@ def test_kernels_equal_plain(cuda, H, R, k):
     assert all(kernels.LAUNCHES[n] == launched[n] + (2 if n == "moment"
                                                      else 1)
                for n in kernels.NAMES)
+
+
+def _walk_batch(H, R, k, seed, copies):
+    """Rows at the strip walk's edges (csrc/walk.cuh: 4-row groups,
+    4-column thread groups, strips of 128 to 1024 rows): random and
+    dense-hit repeat rows with m cycling over 0, 3 (inside the first
+    group), 1023 (the last row of the first 1024-row strip) and 1025
+    (inside the second one's first group); rows 1, 2 and 6 cut so that
+    rlen - k falls inside a column group; last a pad row (rlen 1, m 0) as
+    fused_batch appends.  Where H allows, each hap is shifted 1000 rows
+    down behind random bases, so the read's hits cross rows 1023-1025
+    and the strip boundary.  The rows but the pad row come `copies`
+    times: more rows keep the tallest strips."""
+    ms = (0, 3, 1023, 1025)
+    parts = [random_rows(H, R, 5, seed, ms=ms),
+             repeat_rows(H, R, 4, seed + 1, ms=ms)]
+    haps, reads, rlens, m = (np.concatenate(x) for x in zip(*parts))
+    if H > 2048:
+        lead = np.frombuffer(b"ACGT", np.uint8)[
+            np.random.default_rng(seed).integers(0, 4, (len(m), 1000))]
+        haps = np.concatenate([lead, haps[:, :-1000]], 1)
+    for b, off in ((1, 1), (2, 2), (6, 3)):
+        rlens[b] -= (rlens[b] - k - off) % 4
+        reads[b, rlens[b]:] = READ_PAD
+    haps[-1], reads[-1], rlens[-1], m[-1] = HAP_PAD, READ_PAD, 1, 0
+    return tuple(np.concatenate([x[:-1]] * copies + [x[-1:]])
+                 for x in (haps, reads, rlens, m))
+
+
+@pytest.mark.parametrize("H,R,copies", [(1000, 1300, 1), (4100, 770, 1),
+                                        (4100, 4100, 3)])
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
+    """hist and rdd_moment, the strip-walk kernels, against their plain
+    versions at ragged shapes and the walk's edges; the first two shapes
+    run on 128-row strips, the third on 1024-row ones."""
+    batch = _walk_batch(H, R, k, H + R + k, copies)
+    h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1, cuda)
+    codes = (*row_codes(h, r, rl, k), m, rl, k)
+    want = kernels.hist_plain(*codes)
+    for g, w in zip(kernels.hist(*codes), want):
+        assert torch.equal(g, w)
+    assert int(want[2][:, :2].sum()) > 0
+    kd, ka = (kept_table(x, 10, 10, False) for x in want[:2])
+    found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka), H)
+    z = torch.where(found, z + 2 * m, 0).to(torch.int32)
+    assert torch.equal(kernels.rdd_moment(*codes, kd, ka, z),
+                       kernels.rdd_moment_plain(*codes, kd, ka, z))
 
 
 @pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])

@@ -23,6 +23,7 @@ from vapor_tpu.engine.fused import FusedStats as JaxStats
 from vapor_tpu_torch.engine import fused as tf
 from vapor_tpu_torch.engine import kernels
 from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD, hist_width
+from vapor_tpu_torch.sim.scale import repeat_rows
 from test_fused_vs_oracle import _mutate, _scenarios
 from torch_rows import random_rows
 
@@ -274,6 +275,42 @@ def test_rdd_plain_versions_match_jax_stages(k, m):
                                    *_sel_block(j_mom)]
     assert int(h_kept.sum()) > 0 and bool(found.any())
     assert int(mom[:, 3].sum()) > 0
+
+
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_plain_versions_match_jax_on_repeat_rows(k):
+    """hist, kept_hist and rdd_moment against the JAX stages on dense-hit
+    rows (sim/scale.py repeat_rows: a third of each hap and read is one
+    6 bp unit repeated), where the card's strip walk takes its rare path
+    on most groups of the repeat x repeat block."""
+    Hs, Rs, B = 512, 512, 3
+    batch = repeat_rows(Hs, Rs, B, seed=k, ms=(0, 23))
+    h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
+    codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
+    h_d, h_a, scal = kernels.hist(*codes)
+    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    h_kept = kernels.kept_hist(*codes, kd, ka)
+    found, z = tf.intercept_z(h_kept, Hs)
+    z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
+    mom = kernels.rdd_moment(*codes, kd, ka, z)
+    for b in range(B):
+        row = [jnp.asarray(x[b]) for x in batch] + [jnp.int32(k // 10 - 1)]
+        j_d, j_a, j_scal = (np.asarray(x) for x in
+                            _jax_stages(*row, Hs=Hs, Rs=Rs)[:3])
+        assert np.array_equal(h_d[b].numpy(), j_d)            # hist
+        assert np.array_equal(h_a[b].numpy(), j_a)
+        assert np.array_equal(scal[b].numpy(), j_scal)
+        j_kept, j_found, j_z, j_mom = (np.asarray(x) for x in
+                                       _jax_rdd_stages(*row, Hs=Hs, Rs=Rs))
+        assert np.array_equal(h_kept[b].numpy(), j_kept)     # kept_hist
+        assert (bool(found[b]), int(z[b])) == (bool(j_found), int(j_z))
+        assert mom[b].tolist() == [*_moments(j_mom)[:2], 0,  # rdd_moment
+                                   *_sel_block(j_mom)]
+    # every stage sees work; at k=10 the rows hit more often than on one
+    # diagonal each, and cells are selected
+    assert int(scal[:, :2].sum()) > (B * Rs if k == 10 else 0)
+    assert int(mom[:, 0].sum()) > 0
+    assert int(mom[:, 3].sum()) > 0 or k > 10
 
 
 def _crafted(name):

@@ -228,11 +228,14 @@ def hist(ch, cf, cd, ms, rlens, k: int):
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k)
     if ch.device.type == "cpu":
         return hist_plain(ch, cf, cd, ms, rlens, k)
-    W = hist_width(H, R)
-    h_d = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
-    h_a = torch.zeros_like(h_d)
-    scal = torch.tensor([0, 0, H + 1, -1], dtype=torch.int32,
-                        device=ch.device).repeat(B, 1)
+    # both histograms zeroed by one fill; scal set on the card, since a
+    # copy from pageable host memory would make the call wait for it
+    h_d, h_a = torch.zeros((2, B, hist_width(H, R)), dtype=torch.int32,
+                           device=ch.device)
+    scal = torch.zeros((B, 4), dtype=torch.int32, device=ch.device)
+    scal[:, 2] = H + 1
+    scal[:, 3] = -1
+    W = h_d.shape[1]
     _launch("hist", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes, k,
             W, h_d, h_a, scal)
     return h_d, h_a, scal

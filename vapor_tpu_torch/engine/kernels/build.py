@@ -3,8 +3,9 @@
 Each source in csrc/ compiles on its own into a shared library with a
 plain C entry point (no PyTorch headers, so a build takes seconds).  The
 libraries land in BUILD_DIR under a name that carries a hash of the
-sources and flags, so a changed source is rebuilt and an unchanged one is
-reused.  Nothing here runs at import time.
+flags, the source and every header in csrc/, so a changed source or
+header is rebuilt and an unchanged one is reused.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -13,8 +14,7 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -34,9 +34,12 @@ ENTRY_POINTS = {
     "moment2": ("vt_moment2", _CODES + [_I, _P, _P, _P, _P, _P] + _TAIL),
     "rdd_moment": ("vt_rdd_moment", _CODES + [_I, _P, _P, _P, _P] + _TAIL),
 }
+# kernels on the strip walk (csrc/walk.cuh) -> C function that reports
+# their grid: (B, H, R, lanes, device index, int[4] out)
+GRID_POINTS = {"hist": "vt_hist_grid", "rdd_moment": "vt_rdd_moment_grid"}
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes._CFuncPtr] = {}
+_loaded: Dict[str, ctypes._CFuncPtr] = {}     # C symbol -> function
 
 
 def _nvcc() -> str:
@@ -49,18 +52,19 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu", "hits.cuh"):
+    headers = sorted(x for x in os.listdir(CSRC) if x.endswith(".cuh"))
+    for src in (f"{name}.cu", *headers):
+        digest.update(src.encode())
         with open(os.path.join(CSRC, src), "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = tuple(ENTRY_POINTS),
-          extra_flags: Iterable[str] = ()) -> float:
+          extra_flags: Iterable[str] = ()) -> Dict[str, str]:
     """Compiles every named kernel whose library is missing, one nvcc
-    process per source, all started together.  Returns the seconds
-    spent; raises with nvcc's output when any build fails."""
-    t0 = time.perf_counter()
+    process per source, all started together.  Returns nvcc's output of
+    each build, by kernel; raises with it when any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
     for name in names:
@@ -72,31 +76,45 @@ def build(names: Iterable[str] = tuple(ENTRY_POINTS),
                os.path.join(CSRC, f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
+    logs, failed = {}, []
     for name, out, tmp, proc in jobs:
-        log = proc.communicate()[0].decode(errors="replace")
+        logs[name] = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
-            failed.append(f"{name}.cu:\n{log}")
+            failed.append(f"{name}.cu:\n{logs[name]}")
         else:
-            if log.strip():
-                print(f"nvcc {name}.cu:\n{log}", flush=True)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
+    return logs
 
 
-def entry_point(name: str):
-    """The kernel's C launch function, building its library if needed."""
+def _function(name: str, symbol: str, argtypes):
     with _lock:
-        fn = _loaded.get(name)
+        fn = _loaded.get(symbol)
         if fn is None:
             path = library_path(name)
             if not os.path.exists(path):
                 build([name])
-            symbol, argtypes = ENTRY_POINTS[name]
             fn = getattr(ctypes.CDLL(path), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[symbol] = fn
     return fn
+
+
+def entry_point(name: str):
+    """The kernel's C launch function, building its library if needed."""
+    return _function(name, *ENTRY_POINTS[name])
+
+
+def grid_info(name: str, B: int, H: int, R: int, lanes: int,
+              device: int = 0) -> Tuple[int, int, int, int]:
+    """(blocks, blocks resident per SM, SMs, hap rows a block) of a
+    strip-walk kernel's launch on B rows of H x R cells on card
+    `device`."""
+    fn = _function(name, GRID_POINTS[name], [_I] * 5 + [_P])
+    out = (ctypes.c_int * 4)()
+    err = fn(B, H, R, lanes, device, out)
+    if err:
+        raise RuntimeError(f"{name} grid query failed: CUDA error {err}")
+    return out[0], out[1], out[2], out[3]

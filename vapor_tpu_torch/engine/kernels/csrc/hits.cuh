@@ -1,5 +1,5 @@
-// Tile walk shared by the six dot-plot kernels (hist, left_hist,
-// kept_hist, moment, moment2, rdd_moment).
+// Tile walk of four dot-plot kernels (left_hist, kept_hist, moment,
+// moment2); hist and rdd_moment walk walk.cuh's register-blocked strips.
 //
 // A (read, haplotype) row is an H x R grid of cells (i, j): hap k-mer i
 // against read k-mer j.  Cell (i, j) holds a forward hit when the packed

@@ -11,34 +11,37 @@
 // mult * max(-val, 0) over selected cells], mult being the cell's hit
 // multiplicity (0..2).  The wrapper zeroes mom.
 //
-// Bound on the H100: integer ALU: 2 strands x lanes compares per
-// eligible cell; the moment and selection work runs on hits only.
+// Bound on the H100: integer ALU: two lane-0 compares per eligible
+// cell; the keep-table reads, the moment and the selection work run on
+// hits only.
 //
-// Design: moment.cu's tile walk (hits.cuh) with z read once per block.
-// Sums are 64-bit (the selection sums pass 2^31 at the largest
-// buckets), reduced over each warp and added with one atomic per warp
-// and output, so the result is bitwise deterministic.
-#include "hits.cuh"
+// Design: walk.cuh's register-blocked strip walk; the keep tables are
+// read and the 64-bit moment and selection block computed on its rare
+// path only.  Sums are 64-bit (the selection sums pass 2^31 at the
+// largest buckets), reduced over each warp and added with one atomic
+// per warp and output, so the result is bitwise deterministic.
+#include "walk.cuh"
 
-using namespace vt;
+using namespace vtw;
 
 template <int LANES>
-__global__ void __launch_bounds__(TC) rdd_moment_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rdd_moment_kernel(
     const unsigned* ch, const unsigned* cf, const unsigned* cd,
     const int* ms, const int* rlens, int H, int R, int k, int W,
     const uint8_t* keep_d, const uint8_t* keep_a, const int* zs,
-    unsigned long long* mom) {
-  __shared__ unsigned sh[LANES][TH];
-  Tile<LANES> t;
-  if (!load_tile(t, sh, ch, cf, cd, ms, rlens, H, R, k)) return;
+    unsigned long long* mom, int strip) {
+  __shared__ __align__(16) unsigned sh[LANES][MAX_STRIP];
+  Strip s;
+  if (!strip_bounds(s, ms, rlens, H, R, k, strip)) return;
+  stage(s, sh, ch, cf, cd, H, R);
 
-  const uint8_t* kd = keep_d + (size_t)t.b * W;
-  const uint8_t* ka = keep_a + (size_t)t.b * W;
-  const int z = zs[t.b];
+  const uint8_t* kd = keep_d + (size_t)s.b * W;
+  const uint8_t* ka = keep_a + (size_t)s.b * W;
+  const int m = ms[s.b], z = zs[s.b];
   unsigned long long cnt = 0, sum_absd = 0, sel = 0, pos = 0, neg = 0;
-  for_each_hit(t, sh, [&](int i, int hf, int hr) {
-    if (kd[t.j - i + H] | ka[t.j + i]) {
-      const int mult = hf + hr, ip = i - t.m, d = t.j - ip;
+  walk(s, sh, cf, cd, H, R, [&](int i, int j, int hf, int hr) {
+    if (kd[j - i + H] | ka[j + i]) {
+      const int mult = hf + hr, ip = i - m, d = j - ip;
       cnt += mult;
       sum_absd += (unsigned long long)(mult * abs(d));
       const int val = z - 2 * d, den0 = 2 * ip + z;
@@ -50,7 +53,7 @@ __global__ void __launch_bounds__(TC) rdd_moment_kernel(
       }
     }
   });
-  unsigned long long* out = mom + 6 * (size_t)t.b;
+  unsigned long long* out = mom + 6 * (size_t)s.b;
   warp_add(out + 0, cnt);
   warp_add(out + 1, sum_absd);
   warp_add(out + 3, sel);
@@ -66,11 +69,20 @@ extern "C" int vt_rdd_moment(const void* ch, const void* cf, const void* cd,
                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  VT_LAUNCH_BY_LANES(lanes, rdd_moment_kernel, B, H, R,
-                     (cudaStream_t)stream, (const unsigned*)ch,
-                     (const unsigned*)cf, (const unsigned*)cd,
-                     (const int*)ms, (const int*)rlens, H, R, k, W,
-                     (const uint8_t*)keep_d, (const uint8_t*)keep_a,
-                     (const int*)zs, (unsigned long long*)mom);
+  VTW_LAUNCH_BY_LANES(lanes, rdd_moment_kernel, B, H, R, device,
+                      (cudaStream_t)stream, (const unsigned*)ch,
+                      (const unsigned*)cf, (const unsigned*)cd,
+                      (const int*)ms, (const int*)rlens, H, R, k, W,
+                      (const uint8_t*)keep_d, (const uint8_t*)keep_a,
+                      (const int*)zs, (unsigned long long*)mom);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vt_rdd_moment_grid(int B, int H, int R, int lanes,
+                                  int device, int* out) {
+  if (lanes < 2 || lanes > 5) return (int)cudaErrorInvalidValue;
+  const void* by_lanes[] = {
+      (const void*)rdd_moment_kernel<2>, (const void*)rdd_moment_kernel<3>,
+      (const void*)rdd_moment_kernel<4>, (const void*)rdd_moment_kernel<5>};
+  return grid_info(by_lanes[lanes - 2], B, H, R, device, out);
 }

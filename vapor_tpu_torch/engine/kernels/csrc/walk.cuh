@@ -1,0 +1,303 @@
+// Register-blocked tile walk of hist and rdd_moment, laid out for the
+// H100 (the other four dot-plot kernels still walk hits.cuh's tiles).
+//
+// Cells are those of hits.cuh: cell (i, j) of row b pairs hap k-mer i
+// with read k-mer j, is eligible when i >= m and j <= rlen - k, and holds
+// a forward (reverse) hit when all LANES code words of hap row i equal
+// those of forward (dot-space reverse) read column j.
+//
+// Bound: the two lane-0 compares of every eligible cell, on the INT32
+// pipe (64 lanes an SM).  A random lane-0 word matches about 2 cells in
+// 65,536 at k = 10, so the design spends the fast path on those compares
+// alone and everything else on a rare path:
+//
+// * A block walks a strip of `strip` hap rows x TCOLS read columns of
+//   one row b.  Thread t owns the COLS consecutive columns j0 + COLS t + c
+//   and keeps their lane-0 words of both strands in 2 COLS registers;
+//   the other lanes are read from global memory on the rare path only,
+//   so registers do not grow with k.
+// * The strip's hap codes of every lane sit in shared memory, staged
+//   with plain loads (at most 20 a thread, against 256 groups of walk).
+//   Lane 0 is read as one 16-byte warp-wide broadcast per GROUP = 4
+//   rows, which feeds 8 COLS compares.
+// * Fast path: the 8 COLS lane-0 equalities of a 4-row group are ORed
+//   into one predicate and the warp takes one vote.  When any thread of
+//   the warp saw a lane-0 match, the warp re-tests its cells of the
+//   group with every lane and calls the visitor (the rare path).
+// * Masks cost nothing per cell: in shared memory the strip's rows
+//   outside [max(strip start, m), H) hold ROW_SENTINEL as lane 0, and the
+//   registers of columns past rlen - k hold COL_SENTINEL on both strands.
+//   No eligible column of a read built from the engine's alphabet can
+//   hold ROW_SENTINEL and no hap code can hold COL_SENTINEL
+//   (tests/test_torch_build.py), so a masked cell never wakes the fast
+//   path; the rare path re-tests both bounds all the same, so counts
+//   stay exact for any input.
+// * A strip spans MAX_STRIP = 1024 rows where the grid is large: each
+//   block's setup (staging, zeroing and flushing hist's bins, the
+//   barriers, the reductions) is paid over 4096 cells a thread.  Where
+//   the grid would not fill the card (short haps and reads), strips halve
+//   down to MIN_STRIP rows, so that more, shorter blocks share the SMs.
+//
+// All accumulation is integer; outputs do not depend on the order in
+// which the atomics land.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace vtw {
+
+constexpr int THREADS = 256;             // threads per block
+constexpr int MIN_BLOCKS = 4;            // blocks per SM: 64 registers a
+                                         // thread, none spilled
+constexpr int COLS = 4;                  // read columns per thread
+constexpr int TCOLS = THREADS * COLS;    // read columns per block
+constexpr int MAX_STRIP = 1024;          // hap rows per block, at most
+constexpr int MIN_STRIP = 128;           // ... and at least
+constexpr int GROUP = 4;                 // hap rows per 16-byte shared load
+constexpr int SPAN = MAX_STRIP + TCOLS - 1;  // distinct j - i (and j + i)
+// eight symbols of HAP_PAD (nibble 13) and of READ_PAD (nibble 14), in
+// the packing of engine/fused.py pack_codes
+constexpr unsigned ROW_SENTINEL = 0xDDDDDDDDu;
+constexpr unsigned COL_SENTINEL = 0xEEEEEEEEu;
+
+struct Strip {
+  int b, s0, j0;      // row, first hap row, first read column
+  int ilo, iend;      // eligible rows: [max(s0, m), min(s0 + strip, H))
+  int g_begin, g_end; // groups of GROUP rows walked, from s0
+  int jt, j_last;     // the thread's first column; last eligible column
+  bool warp_walks;    // the warp owns an eligible column
+  unsigned f[COLS];   // lane-0 forward codes of the thread's columns
+  unsigned r[COLS];   // lane-0 reverse (dot-space) codes
+};
+
+// The launch on B rows of H x R cells on card `device`: the tallest
+// strip, from MAX_STRIP down to MIN_STRIP, whose grid still gives every
+// SM MIN_BLOCKS blocks, and its grid.  Returns the CUDA error.
+inline cudaError_t plan(int B, int H, int R, int device, int& strip,
+                        dim3& grid) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long cols = (R + TCOLS - 1) / TCOLS;
+  strip = MAX_STRIP;
+  while (strip > MIN_STRIP &&
+         cols * ((H + strip - 1) / strip) * B < (long)MIN_BLOCKS * sms)
+    strip /= 2;
+  grid = dim3((unsigned)cols, (H + strip - 1) / strip, B);
+  return err;
+}
+
+// The block's strip bounds.  Returns false, for the whole block alike,
+// when the strip holds no eligible cell; such blocks exit before any
+// barrier.
+__device__ __forceinline__ bool strip_bounds(Strip& s, const int* ms,
+                                             const int* rlens, int H,
+                                             int R, int k, int strip) {
+  s.b = blockIdx.z;
+  s.s0 = blockIdx.y * strip;
+  s.j0 = blockIdx.x * TCOLS;
+  s.j_last = min(rlens[s.b] - k, R - 1);
+  s.ilo = max(s.s0, ms[s.b]);
+  s.iend = min(s.s0 + strip, H);
+  s.g_begin = (s.ilo - s.s0) / GROUP;
+  s.g_end = (s.iend - s.s0 + GROUP - 1) / GROUP;
+  s.jt = s.j0 + COLS * (int)threadIdx.x;
+  s.warp_walks = s.j0 + COLS * (int)(threadIdx.x & ~31u) <= s.j_last;
+  return s.j0 <= s.j_last && s.ilo < s.iend;
+}
+
+// Stages the strip's hap codes (sentinel-masked lane 0) in shared memory
+// and the thread's lane-0 column codes in registers, then syncs the
+// block.
+template <int LANES>
+__device__ __forceinline__ void stage(Strip& s,
+                                      unsigned (&sh)[LANES][MAX_STRIP],
+                                      const unsigned* ch,
+                                      const unsigned* cf,
+                                      const unsigned* cd, int H, int R) {
+  const int row0 = GROUP * s.g_begin, row1 = GROUP * s.g_end;
+#pragma unroll
+  for (int lane = 0; lane < LANES; ++lane) {
+    const unsigned* src = ch + ((size_t)s.b * LANES + lane) * H + s.s0;
+    for (int row = row0 + (int)threadIdx.x; row < row1; row += THREADS) {
+      const int i = s.s0 + row;
+      const bool ok = i >= s.ilo && i < H;
+      sh[lane][row] = ok ? src[row] : (lane == 0 ? ROW_SENTINEL : 0u);
+    }
+  }
+  const size_t at = (size_t)s.b * LANES * R;
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int j = s.jt + c;
+    const bool ok = j <= s.j_last;
+    s.f[c] = ok ? cf[at + j] : COL_SENTINEL;
+    s.r[c] = ok ? cd[at + j] : COL_SENTINEL;
+  }
+  __syncthreads();
+}
+
+// One group of the fast path: loads the group's four lane-0 hap words
+// with one 16-byte shared broadcast from shared address `at`, chains the
+// 8 COLS lane-0 equalities into one predicate through setp's OR-combine
+// (one instruction a compare), and votes it over the warp.  Returns the
+// vote, the same in every lane.  Written in PTX so that the compiler
+// neither regroups the chain nor recomputes the address every group; as
+// volatile asm it stays behind the barrier that ends the staging, and it
+// writes no memory.
+__device__ __forceinline__ unsigned group_fires(unsigned at,
+                                                const unsigned (&f)[COLS],
+                                                const unsigned (&r)[COLS]) {
+  static_assert(COLS == 4 && GROUP == 4, "the chain is written for 4 x 4");
+  unsigned fire;
+  asm volatile(
+      "{\n\t"
+      ".reg .u32 h0, h1, h2, h3;\n\t"
+      ".reg .pred p;\n\t"
+      "ld.shared.v4.u32 {h0, h1, h2, h3}, [%1];\n\t"
+      "setp.eq.u32 p, h0, %2;\n\t"
+      "setp.eq.or.u32 p, h0, %6, p;\n\t"
+      "setp.eq.or.u32 p, h0, %3, p;\n\t"
+      "setp.eq.or.u32 p, h0, %7, p;\n\t"
+      "setp.eq.or.u32 p, h0, %4, p;\n\t"
+      "setp.eq.or.u32 p, h0, %8, p;\n\t"
+      "setp.eq.or.u32 p, h0, %5, p;\n\t"
+      "setp.eq.or.u32 p, h0, %9, p;\n\t"
+      "setp.eq.or.u32 p, h1, %2, p;\n\t"
+      "setp.eq.or.u32 p, h1, %6, p;\n\t"
+      "setp.eq.or.u32 p, h1, %3, p;\n\t"
+      "setp.eq.or.u32 p, h1, %7, p;\n\t"
+      "setp.eq.or.u32 p, h1, %4, p;\n\t"
+      "setp.eq.or.u32 p, h1, %8, p;\n\t"
+      "setp.eq.or.u32 p, h1, %5, p;\n\t"
+      "setp.eq.or.u32 p, h1, %9, p;\n\t"
+      "setp.eq.or.u32 p, h2, %2, p;\n\t"
+      "setp.eq.or.u32 p, h2, %6, p;\n\t"
+      "setp.eq.or.u32 p, h2, %3, p;\n\t"
+      "setp.eq.or.u32 p, h2, %7, p;\n\t"
+      "setp.eq.or.u32 p, h2, %4, p;\n\t"
+      "setp.eq.or.u32 p, h2, %8, p;\n\t"
+      "setp.eq.or.u32 p, h2, %5, p;\n\t"
+      "setp.eq.or.u32 p, h2, %9, p;\n\t"
+      "setp.eq.or.u32 p, h3, %2, p;\n\t"
+      "setp.eq.or.u32 p, h3, %6, p;\n\t"
+      "setp.eq.or.u32 p, h3, %3, p;\n\t"
+      "setp.eq.or.u32 p, h3, %7, p;\n\t"
+      "setp.eq.or.u32 p, h3, %4, p;\n\t"
+      "setp.eq.or.u32 p, h3, %8, p;\n\t"
+      "setp.eq.or.u32 p, h3, %5, p;\n\t"
+      "setp.eq.or.u32 p, h3, %9, p;\n\t"
+      "vote.sync.any.pred p, p, 0xffffffff;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t"
+      "}"
+      : "=r"(fire)
+      : "r"(at), "r"(f[0]), "r"(f[1]), "r"(f[2]), "r"(f[3]), "r"(r[0]),
+        "r"(r[1]), "r"(r[2]), "r"(r[3]));
+  return fire;
+}
+
+// The rare path of group g: calls visit(i, j, hf, hr) for each cell of
+// the thread's columns in the group's rows with a hit on either strand
+// (hf and hr 0 or 1).
+template <int LANES, class Visit>
+__device__ __forceinline__ void rare_group(
+    const Strip& s, unsigned (&sh)[LANES][MAX_STRIP], const unsigned* cf,
+    const unsigned* cd, int H, int R, int g, Visit& visit) {
+  unsigned fm = 0, rm = 0;  // bit GROUP c + q: row q, column c matched
+#pragma unroll
+  for (int q = 0; q < GROUP; ++q) {
+    const unsigned h = sh[0][GROUP * g + q];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      fm |= (unsigned)(h == s.f[c]) << (GROUP * c + q);
+      rm |= (unsigned)(h == s.r[c]) << (GROUP * c + q);
+    }
+  }
+  for (unsigned cand = fm | rm; cand; cand &= cand - 1) {
+    const int bit = __ffs(cand) - 1;
+    const int row = GROUP * g + bit % GROUP, i = s.s0 + row;
+    const int j = s.jt + bit / GROUP;
+    if (i < s.ilo || i >= H || j > s.j_last) continue;
+    bool hf = (fm >> bit) & 1u, hr = (rm >> bit) & 1u;
+#pragma unroll
+    for (int lane = 1; lane < LANES; ++lane) {
+      const unsigned h = sh[lane][row];
+      const size_t at = ((size_t)s.b * LANES + lane) * R + j;
+      hf = hf && h == __ldg(cf + at);
+      hr = hr && h == __ldg(cd + at);
+    }
+    if (hf || hr) visit(i, j, (int)hf, (int)hr);
+  }
+}
+
+// Walks the strip: calls visit(i, j, hf, hr) for each cell of the
+// thread's columns with a hit on either strand.  Every thread of the
+// block calls it; a warp with no eligible column returns at once.
+template <int LANES, class Visit>
+__device__ __forceinline__ void walk(const Strip& s,
+                                     unsigned (&sh)[LANES][MAX_STRIP],
+                                     const unsigned* cf,
+                                     const unsigned* cd, int H, int R,
+                                     Visit&& visit) {
+  if (!s.warp_walks) return;
+  unsigned at =
+      (unsigned)__cvta_generic_to_shared(&sh[0][GROUP * s.g_begin]);
+#pragma unroll 2
+  for (int g = s.g_begin; g < s.g_end; ++g, at += GROUP * sizeof(unsigned)) {
+    if (group_fires(at, s.f, s.r))
+      rare_group<LANES>(s, sh, cf, cd, H, R, g, visit);
+  }
+}
+
+// Adds v over the warp to *out with one atomic from lane 0.  Every lane
+// of the warp must call it.  (hits.cuh's, repeated so that the walk does
+// not depend on the tiles it replaces.)
+__device__ __forceinline__ void warp_add(unsigned long long* out,
+                                         unsigned long long v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0 && v) atomicAdd(out, v);
+}
+
+// Writes [blocks of the grid, blocks resident per SM, SMs, strip rows]
+// of kernel's launch on B rows of H x R cells to out (int[4]): the grid
+// runs in blocks / (resident x SMs) waves.  Returns the CUDA error.
+inline int grid_info(const void* kernel, int B, int H, int R, int device,
+                     int* out) {
+  int per_sm = 0, strip = 0;
+  dim3 grid;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, 0);
+  if (err == cudaSuccess) err = plan(B, H, R, device, strip, grid);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount,
+                                 device);
+  out[0] = (int)(grid.x * grid.y * grid.z);
+  out[1] = per_sm;
+  out[3] = strip;
+  return (int)err;
+}
+
+}  // namespace vtw
+
+// Instantiates KERNEL for the lane count of k (2..5 words for k = 10..40)
+// and launches it on the strip grid of B rows; the strip's height goes to
+// the kernel as its last argument.
+#define VTW_LAUNCH_BY_LANES(lanes, KERNEL, B, H, R, device, stream, ...)   \
+  do {                                                                     \
+    int strip_ = 0;                                                        \
+    dim3 grid_;                                                            \
+    const cudaError_t plan_ = vtw::plan(B, H, R, device, strip_, grid_);   \
+    if (plan_ != cudaSuccess) return (int)plan_;                           \
+    switch (lanes) {                                                       \
+      case 2: KERNEL<2><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
+      case 3: KERNEL<3><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
+      case 4: KERNEL<4><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
+      case 5: KERNEL<5><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
+      default: return (int)cudaErrorInvalidValue;                          \
+    }                                                                      \
+  } while (0)

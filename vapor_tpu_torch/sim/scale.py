@@ -4,7 +4,9 @@
 calls; ``build_vcf_worklist`` a VCF of the duplication-bearing events
 that the vcf subcommand scores with the redefine-diagonal scorer
 (DISDUP, DUP_INV and a complex ``Other=`` event with a duplicated
-block).  Made from a seed with numpy and written with the package's own
+block).  ``repeat_rows`` makes engine rows (no files) whose haplotypes
+and reads are a third tandem repeat, where dot-plot hits are dense.
+Made from a seed with numpy and written with the package's own
 FASTA, BAM and BAI writers, so a run needs no external genome.  Every
 event gets READS_EACH spanning reads, half from the donor haplotype
 (carrying the SV) and half from the reference (a het call), with
@@ -20,6 +22,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..engine.constants import HAP_PAD, READ_PAD
 from ..io.bai import write_bai
 from ..io.bam import BamRecord, write_bam
 from ..io.fasta import write_fasta
@@ -48,6 +51,7 @@ VCF_SIZES = ((("DISDUP", 300, 600), ("DUP_INV", 300, 600),
 VCF_REPS = 4
 VCF_EVENTS = tuple(ev for size in VCF_SIZES for _ in range(VCF_REPS)
                    for ev in size)
+REPEAT_UNIT = 6      # repeat_rows: tandem-repeat unit, bp
 
 
 def _revcomp(codes: np.ndarray) -> np.ndarray:
@@ -161,6 +165,41 @@ def build_event_worklist(tmpdir: str, seed: int):
         fh.write("".join(f"chrE\t{s}\t{e}\tSV{i}\t{t}\n"
                          for i, (t, s, e) in enumerate(events)))
     return fa, bam, bed, events
+
+
+def repeat_rows(H: int, R: int, B: int, seed: int, ms=(0,)):
+    """(haps, reads, rlens, ms) numpy engine rows, dense in hits.
+
+    Each hap is a random flank, a tandem repeat of one REPEAT_UNIT bp
+    unit and a random flank, a third each.  Each read is a noisy_read
+    copy (rate ERR) of the hap's left flank end, the same repeat and the
+    right flank start, again a third each: the two share flanks (a
+    diagonal of hits) and repeat (hits on every sixth diagonal of the
+    repeat x repeat block).  Every other read is reverse-complemented, so
+    the reverse strand hits too.  Bytes as the engine takes them: ASCII
+    bases with HAP_PAD / READ_PAD tails; row b gets m = ms[b % len(ms)]."""
+    rng = np.random.default_rng(seed)
+    haps = np.full((B, H), HAP_PAD, np.uint8)
+    reads = np.full((B, R), READ_PAD, np.uint8)
+    rlens = np.zeros(B, np.int32)
+    for b in range(B):
+        n = H - int(rng.integers(5, 60))
+        unit = rng.integers(0, 4, REPEAT_UNIT).astype(np.uint8)
+        left = rng.integers(0, 4, n // 3).astype(np.uint8)
+        right = rng.integers(0, 4, n - 2 * (n // 3)).astype(np.uint8)
+        haps[b, :n] = BASES[np.concatenate(
+            [left, np.resize(unit, n // 3), right])]
+        third = (R - int(rng.integers(60, 120))) // 3
+        template = np.concatenate([left[max(0, left.size - third):],
+                                   np.resize(unit, third),
+                                   right[:third]])
+        read = noisy_read(template, rng, ERR)[0][:R - 1]
+        if b % 2:
+            read = _revcomp(read)
+        reads[b, :read.size] = BASES[read]
+        rlens[b] = read.size
+    m = np.array([ms[b % len(ms)] for b in range(B)], np.int32)
+    return haps, reads, rlens, m
 
 
 def build_vcf_worklist(tmpdir: str, seed: int):

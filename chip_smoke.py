@@ -9,9 +9,9 @@ and checks the output against the CPU and numpy-oracle runs.
 
 Phases, each fatal on failure: 1 build (nvcc's -Xptxas=-v report:
 registers, shared memory, spills), 2 input, 3 kernel parity and timing
-(at each mode's event sizes, and hist and rdd_moment also on dense-hit
-repeat rows), 4 end to end on cuda (bed, then vcf), 5 CPU and oracle
-cross-check, 6 kernel list.  The last line of stdout is
+(at each mode's event sizes, and the four strip-walk kernels also on
+dense-hit repeat rows), 4 end to end on cuda (bed, then vcf), 5 CPU and
+oracle cross-check, 6 kernel list.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -56,7 +56,8 @@ REPORT_AT = {"hist": SIZES[-1], "left_hist": SIZES[-1],
              "kept_hist": DUP_SIZES[-1], "rdd_moment": DUP_SIZES[-1]}
 # H = R of the dense-hit repeat rows each walk kernel is also timed on:
 # the bucket of its reported shape
-REPEAT_AT = {"hist": 12544, "rdd_moment": 16384}
+REPEAT_AT = {"hist": 12544, "kept_hist": 16384, "rdd_moment": 16384,
+             "moment": 12544}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -248,6 +249,17 @@ def kernel_parity(fa, bam, events, reps: int):
             }
             for name, run in runs.items():
                 _compare(name, body, k, *run, reps, report)
+            # moment's w10 call (fused_batch's w10 mode) on the same rows
+            # with the 50-threshold tables: held equal, its time printed
+            # beside the reported m1b call's
+            err = _measure("moment", codes_d, hits_d, (kd50, ka50),
+                           lambda c=codes_d: kernels.moment(
+                               *c, kd50, ka50, True),
+                           lambda c=codes_d: kernels.moment_plain(
+                               *c, kd50, ka50, True),
+                           reps, f"body {body} w10")[0]
+            report["moment"]["max_abs_err"] = max(
+                report["moment"]["max_abs_err"], err)
     for body in DUP_SIZES:
         for k in (10, 40):
             codes, hits, _, kd, ka = rows(find("DUP", body), "rdd", k)
@@ -270,10 +282,11 @@ def kernel_parity(fa, bam, events, reps: int):
 
 
 def repeat_parity(seed: int, reps: int, report) -> None:
-    """hist and rdd_moment against their plain versions on dense-hit rows
-    (sim/scale.py repeat_rows: a third of every hap and read is one 6 bp
-    unit repeated) at B=20, H=R = the kernel's reported size, k=10; adds
-    the kernel's time there to its report."""
+    """The strip-walk kernels against their plain versions on dense-hit
+    rows (sim/scale.py repeat_rows: a third of every hap and read is one
+    6 bp unit repeated) at B=20, H=R = the kernel's reported size, k=10,
+    with the m1b keep tables (moment without w10, as mode m1b calls it);
+    adds the kernel's time there to its report."""
     import torch
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.fused import (batch_from_numpy, intercept_z,
@@ -287,19 +300,21 @@ def repeat_parity(seed: int, reps: int, report) -> None:
         codes = (*row_codes(h, r, rl, k), m, rl, k)
         h_d, h_a, scal = kernels.hist_plain(*codes)
         hits = int(scal[:, :2].sum())
+        kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
         if name == "hist":
-            tables = ()
-            kern = functools.partial(kernels.hist, *codes)
-            plain = functools.partial(kernels.hist_plain, *codes)
+            args = ()
+        elif name == "kept_hist":
+            args = (kd, ka)
+        elif name == "moment":
+            args = (kd, ka, False)
         else:
-            kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
             found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka),
                                    size)
-            z = torch.where(found, z + 2 * m, 0).to(torch.int32)
-            tables = (kd, ka, z)
-            kern = functools.partial(kernels.rdd_moment, *codes, *tables)
-            plain = functools.partial(kernels.rdd_moment_plain, *codes,
-                                      *tables)
+            args = (kd, ka, torch.where(found, z + 2 * m, 0).to(torch.int32))
+        tables = tuple(x for x in args if isinstance(x, torch.Tensor))
+        kern = functools.partial(getattr(kernels, name), *codes, *args)
+        plain = functools.partial(getattr(kernels, f"{name}_plain"), *codes,
+                                  *args)
         err, ms_k, _, bound, _ = _measure(name, codes, hits, tables, kern,
                                           plain, reps, "repeat")
         report[name].update(
@@ -308,12 +323,13 @@ def repeat_parity(seed: int, reps: int, report) -> None:
 
 
 def walk_waves(report) -> None:
-    """Prints the grid of each strip-walk kernel (csrc/walk.cuh) at its
-    reported shape, B=20, k=10, and its waves: blocks over the blocks
-    the card holds at once."""
+    """Prints the grid of each strip-walk kernel (csrc/walk.cuh, the
+    kernels with a grid query) at its reported shape, B=20, k=10, and its
+    waves: blocks over the blocks the card holds at once."""
     import torch
     from vapor_tpu_torch.engine.kernels import build
-    for name, size in REPEAT_AT.items():
+    for name in build.GRID_POINTS:
+        size = REPEAT_AT[name]
         blocks, per_sm, sms, strip = build.grid_info(
             name, 20, size, size, 2, torch.cuda.current_device())
         waves = blocks / (per_sm * sms)

@@ -1,9 +1,11 @@
-"""vapor_tpu_torch's kernel build cache and the strip walk's sentinels,
-on the CPU (no nvcc needed).
+"""vapor_tpu_torch's kernel build cache and bindings and the strip walk's
+sentinels, on the CPU (no nvcc needed).
 
 * build.library_path names a kernel's library by a hash of the flags,
   its source and every header in csrc/, so an edited header is never
   served from a stale library.
+* Each kernel source walks the header its grid query implies and
+  defines the C symbols that build binds.
 * csrc/walk.cuh masks rows and columns with sentinel code words; no
   code on the other side of a compare may hold them, or a masked cell
   would wake the walk's fast path (the rare path re-tests the bounds,
@@ -50,6 +52,22 @@ def test_library_path_follows_its_own_source_only(csrc):
     after = {n: build.library_path(n) for n in build.ENTRY_POINTS}
     assert [n for n in build.ENTRY_POINTS if before[n] != after[n]] == \
         ["moment"]
+
+
+@pytest.mark.parametrize("name", sorted(build.ENTRY_POINTS))
+def test_kernel_source_walks_one_header_and_defines_its_symbols(name):
+    """A kernel with a grid query walks walk.cuh's strips, the others
+    hits.cuh's tiles; every C symbol build binds is defined in the
+    kernel's source (nvcc and the card are not needed to see either)."""
+    with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
+        src = fh.read()
+    on_walk = name in build.GRID_POINTS
+    assert ('#include "walk.cuh"' in src) == on_walk
+    assert ('#include "hits.cuh"' in src) != on_walk
+    symbols = [build.ENTRY_POINTS[name][0]]
+    symbols += [build.GRID_POINTS[name]] if on_walk else []
+    for symbol in symbols:
+        assert re.search(rf'extern "C" int {symbol}\(', src), symbol
 
 
 def _walk_constant(name):

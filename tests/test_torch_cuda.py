@@ -99,9 +99,11 @@ def _walk_batch(H, R, k, seed, copies):
                                         (4100, 4100, 3)])
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
-    """hist and rdd_moment, the strip-walk kernels, against their plain
-    versions at ragged shapes and the walk's edges; the first two shapes
-    run on 128-row strips, the third on 1024-row ones."""
+    """hist, kept_hist, rdd_moment and moment, the strip-walk kernels,
+    against their plain versions at ragged shapes and the walk's edges
+    (moment with the m1b tables and with the 50-threshold tables and
+    w10, as modes m1b and w10 call it); the first two shapes run on
+    128-row strips, the third on 1024-row ones."""
     batch = _walk_batch(H, R, k, H + R + k, copies)
     h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1, cuda)
     codes = (*row_codes(h, r, rl, k), m, rl, k)
@@ -110,10 +112,19 @@ def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
         assert torch.equal(g, w)
     assert int(want[2][:, :2].sum()) > 0
     kd, ka = (kept_table(x, 10, 10, False) for x in want[:2])
-    found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka), H)
+    h_kept = kernels.kept_hist_plain(*codes, kd, ka)
+    assert torch.equal(kernels.kept_hist(*codes, kd, ka), h_kept)
+    assert int(h_kept.sum()) > 0
+    found, z = intercept_z(h_kept, H)
     z = torch.where(found, z + 2 * m, 0).to(torch.int32)
     assert torch.equal(kernels.rdd_moment(*codes, kd, ka, z),
                        kernels.rdd_moment_plain(*codes, kd, ka, z))
+    kd50 = kept_table(want[0], 10, 50, True)
+    ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50, True)
+    for keep, w10 in (((kd, ka), False), ((kd50, ka50), True)):
+        mom = kernels.moment_plain(*codes, *keep, w10)
+        assert torch.equal(kernels.moment(*codes, *keep, w10), mom)
+        assert int(mom[:, 0].sum()) > 0
 
 
 @pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])

@@ -313,6 +313,34 @@ def test_plain_versions_match_jax_on_repeat_rows(k):
     assert int(mom[:, 3].sum()) > 0 or k > 10
 
 
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_moment_plain_matches_jax_on_repeat_rows(k):
+    """moment and moment2 against the JAX moment blocks on dense-hit rows:
+    the m1b tables without w10 (mode m1b), the 50-threshold tables with
+    w10 (mode w10) and without it, and both sets in one pass (del)."""
+    Hs, Rs, B = 512, 512, 3
+    batch = repeat_rows(Hs, Rs, B, seed=k + 1, ms=(0, 23))
+    h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
+    codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
+    h_d, h_a, _ = kernels.hist(*codes)
+    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    kd50 = tf.kept_table(h_d, 10, 50, True)
+    ka50 = tf.kept_table(kernels.left_hist(*codes, kd50), 10, 50, True)
+    mom = kernels.moment(*codes, kd, ka, False)
+    mom50 = kernels.moment(*codes, kd50, ka50, True)
+    mom50_off = kernels.moment(*codes, kd50, ka50, False)
+    mom2 = kernels.moment2(*codes, kd, ka, kd50, ka50)
+    for b in range(B):
+        row = [jnp.asarray(x[b]) for x in batch] + [jnp.int32(k // 10 - 1)]
+        j_mom, j_mom50 = (_moments(x) for x in
+                          _jax_stages(*row, Hs=Hs, Rs=Rs)[8:])
+        assert mom[b].tolist() == [*j_mom[:2], 0]
+        assert mom50[b].tolist() == j_mom50
+        assert mom50_off[b].tolist() == [*j_mom50[:2], 0]
+        assert mom2[b].tolist() == [*j_mom[:2], 0, *j_mom50]
+    assert int(mom[:, 0].sum()) > 0 and int(mom50[:, 2].sum()) > 0
+
+
 def _crafted(name):
     """(W, H, histogram) cases for the intercept fit's branches."""
     W, H = 640, 256

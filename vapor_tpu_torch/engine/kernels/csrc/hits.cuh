@@ -1,5 +1,5 @@
-// Tile walk of four dot-plot kernels (left_hist, kept_hist, moment,
-// moment2); hist and rdd_moment walk walk.cuh's register-blocked strips.
+// Tile walk of two dot-plot kernels (left_hist and moment2); the other
+// four walk walk.cuh's register-blocked strips.
 //
 // A (read, haplotype) row is an H x R grid of cells (i, j): hap k-mer i
 // against read k-mer j.  Cell (i, j) holds a forward hit when the packed

@@ -8,40 +8,43 @@
 // (intercept_z in engine/fused.py) reads absolute bins: bin - H is j - i
 // exactly.  The wrapper zeroes h_d.
 //
-// Bound on the H100: integer ALU, as for hist: 2 strands x lanes
-// compares per eligible cell; the keep tables are read only on a hit.
+// Bound on the H100: integer ALU, as for hist: two lane-0 compares per
+// eligible cell; the keep tables are read only on a hit.
 //
-// Design: hist's tile-local diagonal histogram (TH + TC - 1 bins in
-// shared memory, see hits.cuh for the tile walk), fed only by kept hits,
-// with the keep tables looked up in global memory per hit.  Flushed by
-// its nonzero bins with one integer atomic each, so the output is
-// bitwise deterministic.
-#include "hits.cuh"
+// Design: walk.cuh's register-blocked strip walk, with hist's
+// strip-local diagonal histogram (strip + TCOLS - 1 bins in shared
+// memory, 8 KB at most).  The keep tables are looked up in global
+// memory on the rare path only; a kept hit adds its multiplicity to its
+// shared bin.  The nonzero bins are flushed with one integer atomic
+// each, so the output is bitwise deterministic.
+#include "walk.cuh"
 
-using namespace vt;
+using namespace vtw;
 
 template <int LANES>
-__global__ void __launch_bounds__(TC) kept_hist_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) kept_hist_kernel(
     const unsigned* ch, const unsigned* cf, const unsigned* cd,
     const int* ms, const int* rlens, int H, int R, int k, int W,
-    const uint8_t* keep_d, const uint8_t* keep_a, int* h_d) {
-  __shared__ unsigned sh[LANES][TH];
+    const uint8_t* keep_d, const uint8_t* keep_a, int* h_d, int strip) {
+  __shared__ __align__(16) unsigned sh[LANES][MAX_STRIP];
   __shared__ int hd[SPAN];
-  Tile<LANES> t;
-  if (!load_tile(t, sh, ch, cf, cd, ms, rlens, H, R, k)) return;
-  for (int x = threadIdx.x; x < SPAN; x += TC) hd[x] = 0;
-  __syncthreads();
+  Strip s;
+  if (!strip_bounds(s, ms, rlens, H, R, k, strip)) return;
+  const int span = strip + TCOLS - 1;
+  for (int x = threadIdx.x; x < span; x += THREADS) hd[x] = 0;
+  stage(s, sh, ch, cf, cd, H, R);
 
-  const uint8_t* kd = keep_d + (size_t)t.b * W;
-  const uint8_t* ka = keep_a + (size_t)t.b * W;
-  const int dj = t.j - t.j0;
-  for_each_hit(t, sh, [&](int i, int hf, int hr) {
-    if (kd[t.j - i + H] | ka[t.j + i])
-      atomicAdd(&hd[dj - (i - t.i0) + TH - 1], hf + hr);
+  const uint8_t* kd = keep_d + (size_t)s.b * W;
+  const uint8_t* ka = keep_a + (size_t)s.b * W;
+  walk(s, sh, cf, cd, H, R, [&](int i, int j, int hf, int hr) {
+    if (kd[j - i + H] | ka[j + i])
+      atomicAdd(&hd[(j - s.j0) - (i - s.s0) + strip - 1], hf + hr);
   });
   __syncthreads();
-  // local d-bin x is j - i = x + j0 - i0 - (TH - 1), stored at + H
-  flush_hist(h_d + (size_t)t.b * W, t.j0 - t.i0 - (TH - 1) + H, hd);
+  // local d-bin x is j - i = x + j0 - s0 - (strip - 1), stored at + H
+  int* row_d = h_d + (size_t)s.b * W + (s.j0 - s.s0 - (strip - 1) + H);
+  for (int x = threadIdx.x; x < span; x += THREADS)
+    if (hd[x]) atomicAdd(row_d + x, hd[x]);
 }
 
 extern "C" int vt_kept_hist(const void* ch, const void* cf, const void* cd,
@@ -51,11 +54,20 @@ extern "C" int vt_kept_hist(const void* ch, const void* cf, const void* cd,
                             void* h_d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  VT_LAUNCH_BY_LANES(lanes, kept_hist_kernel, B, H, R,
-                     (cudaStream_t)stream, (const unsigned*)ch,
-                     (const unsigned*)cf, (const unsigned*)cd,
-                     (const int*)ms, (const int*)rlens, H, R, k, W,
-                     (const uint8_t*)keep_d, (const uint8_t*)keep_a,
-                     (int*)h_d);
+  VTW_LAUNCH_BY_LANES(lanes, kept_hist_kernel, B, H, R, device,
+                      (cudaStream_t)stream, (const unsigned*)ch,
+                      (const unsigned*)cf, (const unsigned*)cd,
+                      (const int*)ms, (const int*)rlens, H, R, k, W,
+                      (const uint8_t*)keep_d, (const uint8_t*)keep_a,
+                      (int*)h_d);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vt_kept_hist_grid(int B, int H, int R, int lanes,
+                                 int device, int* out) {
+  if (lanes < 2 || lanes > 5) return (int)cudaErrorInvalidValue;
+  const void* by_lanes[] = {
+      (const void*)kept_hist_kernel<2>, (const void*)kept_hist_kernel<3>,
+      (const void*)kept_hist_kernel<4>, (const void*)kept_hist_kernel<5>};
+  return grid_info(by_lanes[lanes - 2], B, H, R, device, out);
 }

@@ -8,39 +8,44 @@
 // i' > 0 and 25|d| < 4i' (only when want_w10)] over kept cells, mult
 // being the cell's hit multiplicity (0..2).  The wrapper zeroes mom.
 //
-// Bound on the H100: integer ALU: 2 strands x lanes compares per
-// eligible cell; the moment work runs on hits only.
+// Bound on the H100: integer ALU: two lane-0 compares per eligible
+// cell; the keep-table reads and the moment work run on hits only.
 //
-// Design: the tile walk of hits.cuh; keep tables are read from global
-// memory per hit, so the (H, R) keep mask is never formed.  Sums are
-// 64-bit (sum |d| reaches ~H R (H + R), past 2^31 at large buckets),
-// reduced over each warp and added with one atomic per warp.
-#include "hits.cuh"
+// Design: walk.cuh's register-blocked strip walk, as rdd_moment without
+// the selection block; the keep tables are read from global memory on
+// its rare path only, so the (H, R) keep mask is never formed, and
+// want_w10 is read there too.  Sums are 64-bit (sum |d| reaches
+// ~H R (H + R), past 2^31 at large buckets), reduced over each warp and
+// added with one atomic per warp and output, so the result is bitwise
+// deterministic.
+#include "walk.cuh"
 
-using namespace vt;
+using namespace vtw;
 
 template <int LANES>
-__global__ void __launch_bounds__(TC) moment_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) moment_kernel(
     const unsigned* ch, const unsigned* cf, const unsigned* cd,
     const int* ms, const int* rlens, int H, int R, int k, int W,
     const uint8_t* keep_d, const uint8_t* keep_a, int want_w10,
-    unsigned long long* mom) {
-  __shared__ unsigned sh[LANES][TH];
-  Tile<LANES> t;
-  if (!load_tile(t, sh, ch, cf, cd, ms, rlens, H, R, k)) return;
+    unsigned long long* mom, int strip) {
+  __shared__ __align__(16) unsigned sh[LANES][MAX_STRIP];
+  Strip s;
+  if (!strip_bounds(s, ms, rlens, H, R, k, strip)) return;
+  stage(s, sh, ch, cf, cd, H, R);
 
-  const uint8_t* kd = keep_d + (size_t)t.b * W;
-  const uint8_t* ka = keep_a + (size_t)t.b * W;
+  const uint8_t* kd = keep_d + (size_t)s.b * W;
+  const uint8_t* ka = keep_a + (size_t)s.b * W;
+  const int m = ms[s.b];
   unsigned long long cnt = 0, sum_absd = 0, w10 = 0;
-  for_each_hit(t, sh, [&](int i, int hf, int hr) {
-    if (kd[t.j - i + H] | ka[t.j + i]) {
-      const int mult = hf + hr, ip = i - t.m, ad = abs(t.j - ip);
+  walk(s, sh, cf, cd, H, R, [&](int i, int j, int hf, int hr) {
+    if (kd[j - i + H] | ka[j + i]) {
+      const int mult = hf + hr, ip = i - m, ad = abs(j - ip);
       cnt += mult;
       sum_absd += (unsigned long long)(mult * ad);
       if (want_w10 && ip > 0 && 25 * ad < 4 * ip) w10 += mult;
     }
   });
-  unsigned long long* out = mom + 3 * (size_t)t.b;
+  unsigned long long* out = mom + 3 * (size_t)s.b;
   warp_add(out + 0, cnt);
   warp_add(out + 1, sum_absd);
   warp_add(out + 2, w10);
@@ -53,11 +58,20 @@ extern "C" int vt_moment(const void* ch, const void* cf, const void* cd,
                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  VT_LAUNCH_BY_LANES(lanes, moment_kernel, B, H, R, (cudaStream_t)stream,
-                     (const unsigned*)ch, (const unsigned*)cf,
-                     (const unsigned*)cd, (const int*)ms,
-                     (const int*)rlens, H, R, k, W, (const uint8_t*)keep_d,
-                     (const uint8_t*)keep_a, want_w10,
-                     (unsigned long long*)mom);
+  VTW_LAUNCH_BY_LANES(lanes, moment_kernel, B, H, R, device,
+                      (cudaStream_t)stream, (const unsigned*)ch,
+                      (const unsigned*)cf, (const unsigned*)cd,
+                      (const int*)ms, (const int*)rlens, H, R, k, W,
+                      (const uint8_t*)keep_d, (const uint8_t*)keep_a,
+                      want_w10, (unsigned long long*)mom);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vt_moment_grid(int B, int H, int R, int lanes, int device,
+                              int* out) {
+  if (lanes < 2 || lanes > 5) return (int)cudaErrorInvalidValue;
+  const void* by_lanes[] = {
+      (const void*)moment_kernel<2>, (const void*)moment_kernel<3>,
+      (const void*)moment_kernel<4>, (const void*)moment_kernel<5>};
+  return grid_info(by_lanes[lanes - 2], B, H, R, device, out);
 }

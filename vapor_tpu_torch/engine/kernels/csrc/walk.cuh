@@ -1,5 +1,6 @@
-// Register-blocked tile walk of hist and rdd_moment, laid out for the
-// H100 (the other four dot-plot kernels still walk hits.cuh's tiles).
+// Register-blocked tile walk of hist, kept_hist, rdd_moment and moment,
+// laid out for the H100 (left_hist and moment2 still walk hits.cuh's
+// tiles).
 //
 // Cells are those of hits.cuh: cell (i, j) of row b pairs hap k-mer i
 // with read k-mer j, is eligible when i >= m and j <= rlen - k, and holds
@@ -33,7 +34,7 @@
 //   path; the rare path re-tests both bounds all the same, so counts
 //   stay exact for any input.
 // * A strip spans MAX_STRIP = 1024 rows where the grid is large: each
-//   block's setup (staging, zeroing and flushing hist's bins, the
+//   block's setup (staging, zeroing and flushing the histograms, the
 //   barriers, the reductions) is paid over 4096 cells a thread.  Where
 //   the grid would not fill the card (short haps and reads), strips halve
 //   down to MIN_STRIP rows, so that more, shorter blocks share the SMs.

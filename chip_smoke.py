@@ -9,9 +9,10 @@ and checks the output against the CPU and numpy-oracle runs.
 
 Phases, each fatal on failure: 1 build (nvcc's -Xptxas=-v report:
 registers, shared memory, spills), 2 input, 3 kernel parity and timing
-(at each mode's event sizes, and the four strip-walk kernels also on
-dense-hit repeat rows), 4 end to end on cuda (bed, then vcf), 5 CPU and
-oracle cross-check, 6 kernel list.  The last line of stdout is
+(at each mode's event sizes, and every kernel also on dense-hit repeat
+rows at its reported shape, with its grid's waves), 4 end to end on cuda
+(bed, then vcf), 5 CPU and oracle cross-check, 6 kernel list.  The last
+line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -54,10 +55,16 @@ REPLACES = {
 REPORT_AT = {"hist": SIZES[-1], "left_hist": SIZES[-1],
              "moment": SIZES[-1], "moment2": SIZES[-1],
              "kept_hist": DUP_SIZES[-1], "rdd_moment": DUP_SIZES[-1]}
-# H = R of the dense-hit repeat rows each walk kernel is also timed on:
-# the bucket of its reported shape
-REPEAT_AT = {"hist": 12544, "kept_hist": 16384, "rdd_moment": 16384,
-             "moment": 12544}
+# and also at the smallest body, the shape of most main-path launches
+SMALL_AT = {"hist": SIZES[0], "left_hist": SIZES[0], "moment": SIZES[0],
+            "moment2": SIZES[0], "kept_hist": DUP_SIZES[0],
+            "rdd_moment": DUP_SIZES[0]}
+# (H, R) of the dense-hit repeat rows each kernel is also timed on, and
+# of the grid its waves are reported for: the buckets of its reported
+# shape (DEL rows pair a 12544 hap with reads cut at the left breakpoint)
+REPEAT_AT = {"hist": (12544, 12544), "left_hist": (12544, 1024),
+             "kept_hist": (16384, 16384), "rdd_moment": (16384, 16384),
+             "moment": (12544, 12544), "moment2": (12544, 1024)}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -180,19 +187,17 @@ def _measure(name, codes, hits, tables, kern, plain, reps, label):
 def _compare(name, body, k, codes, hits, tables, kern, plain, reps,
              report):
     """_measure on the rows of one event; keeps the numbers of the
-    reported shape."""
+    reported shape, and the kernel's time at the smallest body."""
     err, ms_k, ms_p, bound, bound_by = _measure(
         name, codes, hits, tables, kern, plain, reps, f"body {body}")
     B, H, R = codes[0].shape[0], codes[0].shape[2], codes[1].shape[2]
-    prev = report.get(name, {"max_abs_err": 0})
-    entry = {"max_abs_err": max(prev["max_abs_err"], err)}
+    entry = report.setdefault(name, {"max_abs_err": 0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
     if body == REPORT_AT[name] and k == 10:
         entry.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
                      bound_by=bound_by, shape=f"B={B} H={H} R={R} k={k}")
-    else:
-        entry.update({x: prev[x] for x in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "shape") if x in prev})
-    report[name] = entry
+    if body == SMALL_AT[name] and k == 10:
+        entry.update(small_ms=ms_k, small_shape=f"B={B} H={H} R={R} k={k}")
 
 
 def kernel_parity(fa, bam, events, reps: int):
@@ -282,34 +287,47 @@ def kernel_parity(fa, bam, events, reps: int):
 
 
 def repeat_parity(seed: int, reps: int, report) -> None:
-    """The strip-walk kernels against their plain versions on dense-hit
-    rows (sim/scale.py repeat_rows: a third of every hap and read is one
-    6 bp unit repeated) at B=20, H=R = the kernel's reported size, k=10,
-    with the m1b keep tables (moment without w10, as mode m1b calls it);
-    adds the kernel's time there to its report."""
+    """Each kernel against its plain version on dense-hit rows
+    (sim/scale.py repeat_rows: a third of every hap and read is one 6 bp
+    unit repeated) at B=20, (H, R) = its reported shape, k=10, with the
+    tables its mode gives it: the m1b tables (kept_hist, rdd_moment, and
+    moment without w10, as mode m1b calls it), the 50-threshold d-table
+    (left_hist) and both sets (moment2, as mode del calls it); adds the
+    kernel's time there to its report.  A kernel without a grid query
+    (one not on csrc/walk.cuh, in an older tree) is skipped."""
     import torch
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.fused import (batch_from_numpy, intercept_z,
                                               kept_table, row_codes)
+    from vapor_tpu_torch.engine.kernels import build
     from vapor_tpu_torch.sim.scale import repeat_rows
     k = 10
-    for name, size in REPEAT_AT.items():
+    for name, (H, R) in REPEAT_AT.items():
+        if name not in build.GRID_POINTS:
+            continue
         h, r, rl, m, _ = batch_from_numpy(
-            *repeat_rows(size, size, 20, seed, ms=(0, 23)), k // 10 - 1,
+            *repeat_rows(H, R, 20, seed, ms=(0, 23)), k // 10 - 1,
             torch.device("cuda"))
         codes = (*row_codes(h, r, rl, k), m, rl, k)
         h_d, h_a, scal = kernels.hist_plain(*codes)
         hits = int(scal[:, :2].sum())
         kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
+        kd50 = kept_table(h_d, 10, 50, True)
         if name == "hist":
             args = ()
+        elif name == "left_hist":
+            args = (kd50,)
         elif name == "kept_hist":
             args = (kd, ka)
         elif name == "moment":
             args = (kd, ka, False)
+        elif name == "moment2":
+            ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50,
+                              True)
+            args = (kd, ka, kd50, ka50)
         else:
             found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka),
-                                   size)
+                                   H)
             args = (kd, ka, torch.where(found, z + 2 * m, 0).to(torch.int32))
         tables = tuple(x for x in args if isinstance(x, torch.Tensor))
         kern = functools.partial(getattr(kernels, name), *codes, *args)
@@ -323,18 +341,19 @@ def repeat_parity(seed: int, reps: int, report) -> None:
 
 
 def walk_waves(report) -> None:
-    """Prints the grid of each strip-walk kernel (csrc/walk.cuh, the
-    kernels with a grid query) at its reported shape, B=20, k=10, and its
-    waves: blocks over the blocks the card holds at once."""
+    """Prints the grid of each kernel with a grid query (csrc/walk.cuh's
+    kernels) at its reported shape, B=20, k=10, and its waves: blocks
+    over the blocks the card holds at once."""
     import torch
     from vapor_tpu_torch.engine.kernels import build
     for name in build.GRID_POINTS:
-        size = REPEAT_AT[name]
+        H, R = REPEAT_AT[name]
         blocks, per_sm, sms, strip = build.grid_info(
-            name, 20, size, size, 2, torch.cuda.current_device())
+            name, 20, H, R, 2, torch.cuda.current_device())
         waves = blocks / (per_sm * sms)
-        print(f"grid {name}: {blocks} blocks of {strip} hap rows, {per_sm} "
-              f"resident per SM x {sms} SMs: {waves:.2f} waves", flush=True)
+        print(f"grid {name}: H={H} R={R}: {blocks} blocks of {strip} hap "
+              f"rows, {per_sm} resident per SM x {sms} SMs: {waves:.2f} "
+              f"waves", flush=True)
         report[name]["waves"] = waves
 
 
@@ -386,6 +405,12 @@ def _timed_run(label, counted, *cli_args, **cli_kw):
     _require(not any(plain_on_cuda.values()),
              f"{label}: plain versions ran on CUDA tensors: "
              f"{plain_on_cuda}")
+    shapes = getattr(kernels, "LAUNCH_SHAPES", {})   # absent in older trees
+    for name in kernels.NAMES:
+        by = ", ".join(f"{H}x{R}: {n}" for (x, H, R), n
+                       in sorted(shapes.items()) if x == name)
+        if by:
+            print(f"{label} launches of {name} by H x R: {by}", flush=True)
     return rows, wall, launches
 
 
@@ -520,6 +545,8 @@ def main() -> int:
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name]["bound_by"],
          "library_ms": None, "shape": report[name]["shape"],
+         "small_ms": report[name]["small_ms"],
+         "small_shape": report[name]["small_shape"],
          **{x: report[name][x] for x in ("repeat_ms", "repeat_bound_ms",
                                          "waves") if x in report[name]}}
         for name in kernels.NAMES]}))

@@ -4,8 +4,8 @@ sentinels, on the CPU (no nvcc needed).
 * build.library_path names a kernel's library by a hash of the flags,
   its source and every header in csrc/, so an edited header is never
   served from a stale library.
-* Each kernel source walks the header its grid query implies and
-  defines the C symbols that build binds.
+* Every kernel source walks csrc/walk.cuh, the one header in csrc/, and
+  defines the C symbols that build binds, its grid query among them.
 * csrc/walk.cuh masks rows and columns with sentinel code words; no
   code on the other side of a compare may hold them, or a masked cell
   would wake the walk's fast path (the rare path re-tests the bounds,
@@ -38,10 +38,18 @@ def _touch(path):
         fh.write("\n// edited\n")
 
 
-@pytest.mark.parametrize("header", ["walk.cuh", "hits.cuh", "new.cuh"])
-def test_library_path_follows_every_header(csrc, header):
+def _rename(path):
+    os.rename(path, path[:-len(".cuh")] + "_old.cuh")
+
+
+@pytest.mark.parametrize("header, change", [
+    ("walk.cuh", _touch),     # a header edited
+    ("new.cuh", _touch),      # a header added
+    ("walk.cuh", _rename),    # a header renamed, its bytes unchanged
+])
+def test_library_path_follows_every_header(csrc, header, change):
     before = {n: build.library_path(n) for n in build.ENTRY_POINTS}
-    _touch(os.path.join(csrc, header))
+    change(os.path.join(csrc, header))
     after = {n: build.library_path(n) for n in build.ENTRY_POINTS}
     assert all(before[n] != after[n] for n in build.ENTRY_POINTS)
 
@@ -56,18 +64,22 @@ def test_library_path_follows_its_own_source_only(csrc):
 
 @pytest.mark.parametrize("name", sorted(build.ENTRY_POINTS))
 def test_kernel_source_walks_one_header_and_defines_its_symbols(name):
-    """A kernel with a grid query walks walk.cuh's strips, the others
-    hits.cuh's tiles; every C symbol build binds is defined in the
-    kernel's source (nvcc and the card are not needed to see either)."""
+    """Every kernel walks walk.cuh's strips and defines each C symbol
+    build binds, its launch and its grid query (nvcc and the card are
+    not needed to see either)."""
     with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
         src = fh.read()
-    on_walk = name in build.GRID_POINTS
-    assert ('#include "walk.cuh"' in src) == on_walk
-    assert ('#include "hits.cuh"' in src) != on_walk
-    symbols = [build.ENTRY_POINTS[name][0]]
-    symbols += [build.GRID_POINTS[name]] if on_walk else []
-    for symbol in symbols:
+    assert re.findall(r'#include "(\w+\.cuh)"', src) == ["walk.cuh"]
+    for symbol in (build.ENTRY_POINTS[name][0], build.GRID_POINTS[name]):
         assert re.search(rf'extern "C" int {symbol}\(', src), symbol
+
+
+def test_csrc_has_one_walk_header():
+    """walk.cuh is the only header in csrc/, and every kernel has a grid
+    query."""
+    assert [x for x in os.listdir(build.CSRC) if x.endswith(".cuh")] == \
+        ["walk.cuh"]
+    assert set(build.GRID_POINTS) == set(build.ENTRY_POINTS)
 
 
 def _walk_constant(name):

@@ -70,7 +70,7 @@ def test_kernels_equal_plain(cuda, H, R, k):
 
 def _walk_batch(H, R, k, seed, copies):
     """Rows at the strip walk's edges (csrc/walk.cuh: 4-row groups,
-    4-column thread groups, strips of 128 to 1024 rows): random and
+    4-column thread groups, strips of 32 to 1024 rows): random and
     dense-hit repeat rows with m cycling over 0, 3 (inside the first
     group), 1023 (the last row of the first 1024-row strip) and 1025
     (inside the second one's first group); rows 1, 2 and 6 cut so that
@@ -95,15 +95,18 @@ def _walk_batch(H, R, k, seed, copies):
                  for x in (haps, reads, rlens, m))
 
 
-@pytest.mark.parametrize("H,R,copies", [(1000, 1300, 1), (4100, 770, 1),
-                                        (4100, 4100, 3)])
+@pytest.mark.parametrize("H,R,copies", [(1000, 1300, 1), (4100, 770, 2),
+                                        (4100, 4100, 3), (12544, 1024, 2)])
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
-    """hist, kept_hist, rdd_moment and moment, the strip-walk kernels,
-    against their plain versions at ragged shapes and the walk's edges
-    (moment with the m1b tables and with the 50-threshold tables and
-    w10, as modes m1b and w10 call it); the first two shapes run on
-    128-row strips, the third on 1024-row ones."""
+    """The six kernels, all on the strip walk, against their plain
+    versions at ragged shapes and the walk's edges: hist, kept_hist and
+    rdd_moment; left_hist with the 50-threshold d-table; moment with the
+    m1b tables and with the 50-threshold tables and w10, as modes m1b and
+    w10 call it; moment2 with both sets, as mode del calls it.  On the
+    H100's 132 SMs the first shape runs on 32-row strips, the second on
+    128-row ones, the third on 1024-row ones and the fourth, a DEL-mode
+    hap taller than its reads, on 256-row ones."""
     batch = _walk_batch(H, R, k, H + R + k, copies)
     h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1, cuda)
     codes = (*row_codes(h, r, rl, k), m, rl, k)
@@ -120,11 +123,17 @@ def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
     assert torch.equal(kernels.rdd_moment(*codes, kd, ka, z),
                        kernels.rdd_moment_plain(*codes, kd, ka, z))
     kd50 = kept_table(want[0], 10, 50, True)
-    ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50, True)
+    h_left = kernels.left_hist_plain(*codes, kd50)
+    assert torch.equal(kernels.left_hist(*codes, kd50), h_left)
+    assert int(h_left.sum()) > 0
+    ka50 = kept_table(h_left, 10, 50, True)
     for keep, w10 in (((kd, ka), False), ((kd50, ka50), True)):
         mom = kernels.moment_plain(*codes, *keep, w10)
         assert torch.equal(kernels.moment(*codes, *keep, w10), mom)
         assert int(mom[:, 0].sum()) > 0
+    mom2 = kernels.moment2_plain(*codes, kd, ka, kd50, ka50)
+    assert torch.equal(kernels.moment2(*codes, kd, ka, kd50, ka50), mom2)
+    assert int(mom2[:, 0].sum()) > 0 and int(mom2[:, 3].sum()) > 0
 
 
 @pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])

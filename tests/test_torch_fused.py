@@ -341,6 +341,31 @@ def test_moment_plain_matches_jax_on_repeat_rows(k):
     assert int(mom[:, 0].sum()) > 0 and int(mom50[:, 2].sum()) > 0
 
 
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+@pytest.mark.parametrize("m", [0, 23])
+def test_left_hist_plain_matches_jax_on_repeat_rows(k, m):
+    """left_hist with the 50-threshold d-table against the JAX within-10%
+    leftover histogram on dense-hit rows shaped as the DEL mode's (a hap
+    taller than the reads cut at the left breakpoint), where the card's
+    strip walk takes its rare path on most groups of the repeat block.
+    The reads are wide enough, and the seeds such, that the d-table drops
+    hits at every k: at Rs = 256 the 40-mer hits of the repeat lie within
+    50 diagonals of the main one, where the table keeps them."""
+    Hs, Rs, B = 1024, 512, 3
+    batch = repeat_rows(Hs, Rs, B, seed=500 + k + m, ms=(m,))
+    h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
+    codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
+    h_d, _, _ = kernels.hist(*codes)
+    kd50 = tf.kept_table(h_d, 10, 50, True)
+    h_left = kernels.left_hist(*codes, kd50)
+    for b in range(B):
+        row = [jnp.asarray(x[b]) for x in batch] + [jnp.int32(k // 10 - 1)]
+        want = _jax_stages(*row, Hs=Hs, Rs=Rs)
+        assert np.array_equal(kd50[b].numpy(), np.asarray(want[6]))
+        assert np.array_equal(h_left[b].numpy(), np.asarray(want[3]))
+    assert int(h_left.sum()) > 0
+
+
 def _crafted(name):
     """(W, H, histogram) cases for the intercept fit's branches."""
     W, H = 640, 256

@@ -16,14 +16,15 @@ hit (0..2).  Keep tables are (B, W) bool over the bins j - i + H
 (``keep_d``) and j + i (``keep_a``), W = hist_width(H, R).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the
-launch in ``LAUNCHES``; for CPU tensors it runs the plain PyTorch version
-of the same function, which lives here too.  Plain versions run on any
-device; ``PLAIN_CUDA_CALLS`` counts the calls they get with CUDA tensors,
-which only the on-card comparison of a kernel with its plain version
-makes.
+launch in ``LAUNCHES``, and by (name, H, R) in ``LAUNCH_SHAPES``; for
+CPU tensors it runs the plain PyTorch version of the same function,
+which lives here too.  Plain versions run on any device;
+``PLAIN_CUDA_CALLS`` counts the calls they get with CUDA tensors, which
+only the on-card comparison of a kernel with its plain version makes.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -33,6 +34,7 @@ from . import build
 
 NAMES = ("hist", "left_hist", "kept_hist", "moment", "moment2", "rdd_moment")
 LAUNCHES: Dict[str, int] = dict.fromkeys(NAMES, 0)
+LAUNCH_SHAPES: Counter = Counter()
 PLAIN_CUDA_CALLS: Dict[str, int] = dict.fromkeys(NAMES, 0)
 
 
@@ -40,6 +42,7 @@ def reset_counts() -> None:
     for name in NAMES:
         LAUNCHES[name] = 0
         PLAIN_CUDA_CALLS[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +95,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name, args[0].shape[2], args[1].shape[2]] += 1
 
 
 def _note_plain(name: str, t: torch.Tensor) -> None:

@@ -34,11 +34,9 @@ ENTRY_POINTS = {
     "moment2": ("vt_moment2", _CODES + [_I, _P, _P, _P, _P, _P] + _TAIL),
     "rdd_moment": ("vt_rdd_moment", _CODES + [_I, _P, _P, _P, _P] + _TAIL),
 }
-# kernels on the strip walk (csrc/walk.cuh; left_hist and moment2 walk
-# csrc/hits.cuh's tiles) -> C function that reports their grid:
-# (B, H, R, lanes, device index, int[4] out)
-GRID_POINTS = {name: f"vt_{name}_grid"
-               for name in ("hist", "kept_hist", "rdd_moment", "moment")}
+# kernel (every one walks csrc/walk.cuh's strips) -> C function that
+# reports its grid: (B, H, R, lanes, device index, int[4] out)
+GRID_POINTS = {name: f"vt_{name}_grid" for name in ENTRY_POINTS}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes._CFuncPtr] = {}     # C symbol -> function

@@ -7,36 +7,42 @@
 // set in keep_d[b] (the 50-threshold diagonal keep table).  The wrapper
 // zeroes h_a.
 //
-// Bound on the H100: integer ALU, as for hist: 2 strands x lanes
-// compares per eligible cell; the keep table is read only on a hit.
+// Bound on the H100: integer ALU, as for hist: two lane-0 compares per
+// eligible cell; the keep table is read only on a hit.
 //
-// Design: the tile walk of hits.cuh; the keep table is looked up in
-// global memory (L1/L2) per hit, which is rare next to the cells, so the
-// (H, R) keep mask is never formed.  One tile-local shared histogram,
-// flushed by its nonzero bins.
-#include "hits.cuh"
+// Design: walk.cuh's register-blocked strip walk, with hist's
+// strip-local anti-diagonal histogram (strip + TCOLS - 1 bins in shared
+// memory, 8 KB at most).  The keep table is looked up in global memory
+// on the rare path only, so the (H, R) keep mask is never formed; a hit
+// whose d-bin is dropped adds its multiplicity to its shared a-bin.  The
+// nonzero bins are flushed with one integer atomic each, so the output
+// is bitwise deterministic.
+#include "walk.cuh"
 
-using namespace vt;
+using namespace vtw;
 
 template <int LANES>
-__global__ void __launch_bounds__(TC) left_hist_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) left_hist_kernel(
     const unsigned* ch, const unsigned* cf, const unsigned* cd,
     const int* ms, const int* rlens, int H, int R, int k, int W,
-    const uint8_t* keep_d, int* h_a) {
-  __shared__ unsigned sh[LANES][TH];
+    const uint8_t* keep_d, int* h_a, int strip) {
+  __shared__ __align__(16) unsigned sh[LANES][MAX_STRIP];
   __shared__ int ha[SPAN];
-  Tile<LANES> t;
-  if (!load_tile(t, sh, ch, cf, cd, ms, rlens, H, R, k)) return;
-  for (int x = threadIdx.x; x < SPAN; x += TC) ha[x] = 0;
-  __syncthreads();
+  Strip s;
+  if (!strip_bounds(s, ms, rlens, H, R, k, strip)) return;
+  const int span = strip + TCOLS - 1;
+  for (int x = threadIdx.x; x < span; x += THREADS) ha[x] = 0;
+  stage(s, sh, ch, cf, cd, H, R);
 
-  const uint8_t* kd = keep_d + (size_t)t.b * W;
-  const int dj = t.j - t.j0;
-  for_each_hit(t, sh, [&](int i, int hf, int hr) {
-    if (!kd[t.j - i + H]) atomicAdd(&ha[dj + i - t.i0], hf + hr);
+  const uint8_t* kd = keep_d + (size_t)s.b * W;
+  walk(s, sh, cf, cd, H, R, [&](int i, int j, int hf, int hr) {
+    if (!kd[j - i + H]) atomicAdd(&ha[(j - s.j0) + (i - s.s0)], hf + hr);
   });
   __syncthreads();
-  flush_hist(h_a + (size_t)t.b * W, t.j0 + t.i0, ha);
+  // local a-bin x is j + i = x + j0 + s0
+  int* row_a = h_a + (size_t)s.b * W + (s.j0 + s.s0);
+  for (int x = threadIdx.x; x < span; x += THREADS)
+    if (ha[x]) atomicAdd(row_a + x, ha[x]);
 }
 
 extern "C" int vt_left_hist(const void* ch, const void* cf, const void* cd,
@@ -46,10 +52,19 @@ extern "C" int vt_left_hist(const void* ch, const void* cf, const void* cd,
                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  VT_LAUNCH_BY_LANES(lanes, left_hist_kernel, B, H, R,
-                     (cudaStream_t)stream, (const unsigned*)ch,
-                     (const unsigned*)cf, (const unsigned*)cd,
-                     (const int*)ms, (const int*)rlens, H, R, k, W,
-                     (const uint8_t*)keep_d, (int*)h_a);
+  VTW_LAUNCH_BY_LANES(lanes, left_hist_kernel, B, H, R, device,
+                      (cudaStream_t)stream, (const unsigned*)ch,
+                      (const unsigned*)cf, (const unsigned*)cd,
+                      (const int*)ms, (const int*)rlens, H, R, k, W,
+                      (const uint8_t*)keep_d, (int*)h_a);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vt_left_hist_grid(int B, int H, int R, int lanes,
+                                 int device, int* out) {
+  if (lanes < 2 || lanes > 5) return (int)cudaErrorInvalidValue;
+  const void* by_lanes[] = {
+      (const void*)left_hist_kernel<2>, (const void*)left_hist_kernel<3>,
+      (const void*)left_hist_kernel<4>, (const void*)left_hist_kernel<5>};
+  return grid_info(by_lanes[lanes - 2], B, H, R, device, out);
 }

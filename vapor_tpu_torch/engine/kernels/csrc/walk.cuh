@@ -1,11 +1,14 @@
-// Register-blocked tile walk of hist, kept_hist, rdd_moment and moment,
-// laid out for the H100 (left_hist and moment2 still walk hits.cuh's
-// tiles).
+// Register-blocked tile walk of the six dot-plot kernels (hist,
+// left_hist, kept_hist, rdd_moment, moment, moment2), laid out for the
+// H100.
 //
-// Cells are those of hits.cuh: cell (i, j) of row b pairs hap k-mer i
-// with read k-mer j, is eligible when i >= m and j <= rlen - k, and holds
-// a forward (reverse) hit when all LANES code words of hap row i equal
-// those of forward (dot-space reverse) read column j.
+// A (read, haplotype) row is an H x R grid of cells: cell (i, j) of row b
+// pairs hap k-mer i with read k-mer j, is eligible when i >= m (the
+// read's missing prefix) and j <= rlen - k (past that, the read window
+// reaches the READ_PAD tail), and holds a forward (reverse) hit when all
+// LANES code words of hap row i equal those of forward (dot-space
+// reverse, as rc_dot_codes in engine/fused.py lays them out) read column
+// j.  Each k-mer is LANES 32-bit words of eight 4-bit symbols.
 //
 // Bound: the two lane-0 compares of every eligible cell, on the INT32
 // pipe (64 lanes an SM).  A random lane-0 word matches about 2 cells in
@@ -38,6 +41,9 @@
 //   barriers, the reductions) is paid over 4096 cells a thread.  Where
 //   the grid would not fill the card (short haps and reads), strips halve
 //   down to MIN_STRIP rows, so that more, shorter blocks share the SMs.
+//   There a block's time is its longest warp's: the one that holds the
+//   read's diagonal takes the rare path on every group, one global-load
+//   trip at a time, so its time grows with the strip's rows.
 //
 // All accumulation is integer; outputs do not depend on the order in
 // which the atomics land.
@@ -55,7 +61,7 @@ constexpr int MIN_BLOCKS = 4;            // blocks per SM: 64 registers a
 constexpr int COLS = 4;                  // read columns per thread
 constexpr int TCOLS = THREADS * COLS;    // read columns per block
 constexpr int MAX_STRIP = 1024;          // hap rows per block, at most
-constexpr int MIN_STRIP = 128;           // ... and at least
+constexpr int MIN_STRIP = 32;            // ... and at least
 constexpr int GROUP = 4;                 // hap rows per 16-byte shared load
 constexpr int SPAN = MAX_STRIP + TCOLS - 1;  // distinct j - i (and j + i)
 // eight symbols of HAP_PAD (nibble 13) and of READ_PAD (nibble 14), in
@@ -200,7 +206,9 @@ __device__ __forceinline__ unsigned group_fires(unsigned at,
 
 // The rare path of group g: calls visit(i, j, hf, hr) for each cell of
 // the thread's columns in the group's rows with a hit on either strand
-// (hf and hr 0 or 1).
+// (hf and hr 0 or 1).  A candidate's other lanes are loaded whatever the
+// lanes before them held (j <= j_last < R, so the reads stay in the
+// row), so they are in flight together: one trip to memory at any k.
 template <int LANES, class Visit>
 __device__ __forceinline__ void rare_group(
     const Strip& s, unsigned (&sh)[LANES][MAX_STRIP], const unsigned* cf,
@@ -225,8 +233,8 @@ __device__ __forceinline__ void rare_group(
     for (int lane = 1; lane < LANES; ++lane) {
       const unsigned h = sh[lane][row];
       const size_t at = ((size_t)s.b * LANES + lane) * R + j;
-      hf = hf && h == __ldg(cf + at);
-      hr = hr && h == __ldg(cd + at);
+      hf &= h == __ldg(cf + at);
+      hr &= h == __ldg(cd + at);
     }
     if (hf || hr) visit(i, j, (int)hf, (int)hr);
   }
@@ -252,8 +260,7 @@ __device__ __forceinline__ void walk(const Strip& s,
 }
 
 // Adds v over the warp to *out with one atomic from lane 0.  Every lane
-// of the warp must call it.  (hits.cuh's, repeated so that the walk does
-// not depend on the tiles it replaces.)
+// of the warp must call it.
 __device__ __forceinline__ void warp_add(unsigned long long* out,
                                          unsigned long long v) {
 #pragma unroll

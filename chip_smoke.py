@@ -9,10 +9,13 @@ and checks the output against the CPU and numpy-oracle runs.
 
 Phases, each fatal on failure: 1 build (nvcc's -Xptxas=-v report:
 registers, shared memory, spills), 2 input, 3 kernel parity and timing
-(at each mode's event sizes, and every kernel also on dense-hit repeat
-rows at its reported shape, with its grid's waves), 4 end to end on cuda
-(bed, then vcf), 5 CPU and oracle cross-check, 6 kernel list.  The last
-line of stdout is
+(at each mode's event sizes, every kernel also on dense-hit repeat rows
+at its reported shape, with its grid's waves, and hist on the window
+refiner's self-stats row of the largest DUP alt hap), 4 end to end on
+cuda through the default backend (cross-event batching, the device
+window refiner) and through torch-nobatch, byte-equal (bed, then vcf),
+5 CPU and oracle cross-check of the default backend, 6 kernel list.  The
+last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -145,13 +148,22 @@ def _event_rows(fa, bam, event, mode: str):
     return haps, fw, rlens, ms
 
 
-def _bound(name: str, codes, outs, tables, hits: int):
-    """(least ms the card could take, "bytes" or "operations")."""
+def _hap_lens(haps) -> list:
+    """Each (H,) uint8 hap row's length: its bytes before the HAP_PAD
+    tail."""
+    from vapor_tpu_torch.engine.constants import HAP_PAD
+    return [int(n) for n in (haps != HAP_PAD).sum(1)]
+
+
+def _bound(name: str, codes, hap_lens, outs, tables, hits: int):
+    """(least ms the card could take, "bytes" or "operations").  Cells
+    that can hit: hap rows m..hap_len - k (a later row's k-mer holds
+    HAP_PAD, which no read k-mer does) by read columns 0..rlen - k."""
     ch, cf, cd, ms, rlens, k = codes
-    H, R = ch.shape[2], cf.shape[2]
+    R = cf.shape[2]
     lanes = ch.shape[1]
-    cells = sum(max(0, H - m) * max(0, min(rl - k, R - 1) + 1)
-                for m, rl in zip(ms.tolist(), rlens.tolist()))
+    cells = sum(max(0, n - k + 1 - m) * max(0, min(rl - k, R - 1) + 1)
+                for n, m, rl in zip(hap_lens, ms.tolist(), rlens.tolist()))
     ops = cells * 2 + hits * (lanes - 1 + HIT_OPS[name])
     nbytes = sum(t.numel() * t.element_size()
                  for t in (ch, cf, cd, ms, rlens, *tables, *outs))
@@ -160,7 +172,8 @@ def _bound(name: str, codes, outs, tables, hits: int):
         "bytes" if t_bytes > t_ops else "operations"
 
 
-def _measure(name, codes, hits, tables, kern, plain, reps, label):
+def _measure(name, codes, hap_lens, hits, tables, kern, plain, reps,
+             label):
     """Holds one kernel against its plain version (every output integer
     equal), times both and prints one line.  Returns (max |diff|, ms,
     plain ms, bound ms, bounded by)."""
@@ -177,19 +190,20 @@ def _measure(name, codes, hits, tables, kern, plain, reps, label):
              f"rows, H={H}, R={R}, k={k}: max |diff| {err}")
     ms_k = _time_ms(kern, reps)
     ms_p = _time_ms(plain, 1)
-    bound, bound_by = _bound(name, codes, got, tables, hits)
+    bound, bound_by = _bound(name, codes, hap_lens, got, tables, hits)
     print(f"parity {name:10s} {label} B={B:2d} H={H:5d} R={R:5d} k={k}: "
           f"equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, "
           f"bound {bound:.4f} ms, {hits} hits", flush=True)
     return err, ms_k, ms_p, bound, bound_by
 
 
-def _compare(name, body, k, codes, hits, tables, kern, plain, reps,
-             report):
+def _compare(name, body, k, codes, hap_lens, hits, tables, kern, plain,
+             reps, report):
     """_measure on the rows of one event; keeps the numbers of the
     reported shape, and the kernel's time at the smallest body."""
     err, ms_k, ms_p, bound, bound_by = _measure(
-        name, codes, hits, tables, kern, plain, reps, f"body {body}")
+        name, codes, hap_lens, hits, tables, kern, plain, reps,
+        f"body {body}")
     B, H, R = codes[0].shape[0], codes[0].shape[2], codes[1].shape[2]
     entry = report.setdefault(name, {"max_abs_err": 0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -218,7 +232,7 @@ def kernel_parity(fa, bam, events, reps: int):
         codes = (*row_codes(h, r, rl, k), m, rl, k)
         h_d, h_a, scal = kernels.hist_plain(*codes)
         kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
-        return codes, int(scal[:, :2].sum()), h_d, kd, ka
+        return codes, _hap_lens(haps), int(scal[:, :2].sum()), h_d, kd, ka
 
     def find(svtype, body):
         return next(ev for ev in events if ev[0] == svtype and
@@ -226,27 +240,28 @@ def kernel_parity(fa, bam, events, reps: int):
 
     for body in SIZES:
         for k in (10, 40):
-            codes_i, hits_i, _, kd_i, ka_i = rows(find("INV", body), "m1b",
-                                                  k)
-            codes_d, hits_d, h_d, kd_d, ka_d = rows(find("DEL", body),
-                                                    "del", k)
+            codes_i, n_i, hits_i, _, kd_i, ka_i = rows(find("INV", body),
+                                                       "m1b", k)
+            codes_d, n_d, hits_d, h_d, kd_d, ka_d = rows(find("DEL", body),
+                                                         "del", k)
             kd50 = kept_table(h_d, 10, 50, True)
             ka50 = kept_table(kernels.left_hist_plain(*codes_d, kd50),
                               10, 50, True)
             runs = {
-                "hist": (codes_i, hits_i, (),
+                "hist": (codes_i, n_i, hits_i, (),
                          lambda c=codes_i: kernels.hist(*c),
                          lambda c=codes_i: kernels.hist_plain(*c)),
-                "moment": (codes_i, hits_i, (kd_i, ka_i),
+                "moment": (codes_i, n_i, hits_i, (kd_i, ka_i),
                            lambda c=codes_i: kernels.moment(
                                *c, kd_i, ka_i, False),
                            lambda c=codes_i: kernels.moment_plain(
                                *c, kd_i, ka_i, False)),
-                "left_hist": (codes_d, hits_d, (kd50,),
+                "left_hist": (codes_d, n_d, hits_d, (kd50,),
                               lambda c=codes_d: kernels.left_hist(*c, kd50),
                               lambda c=codes_d: kernels.left_hist_plain(
                                   *c, kd50)),
-                "moment2": (codes_d, hits_d, (kd_d, ka_d, kd50, ka50),
+                "moment2": (codes_d, n_d, hits_d,
+                            (kd_d, ka_d, kd50, ka50),
                             lambda c=codes_d: kernels.moment2(
                                 *c, kd_d, ka_d, kd50, ka50),
                             lambda c=codes_d: kernels.moment2_plain(
@@ -257,7 +272,7 @@ def kernel_parity(fa, bam, events, reps: int):
             # moment's w10 call (fused_batch's w10 mode) on the same rows
             # with the 50-threshold tables: held equal, its time printed
             # beside the reported m1b call's
-            err = _measure("moment", codes_d, hits_d, (kd50, ka50),
+            err = _measure("moment", codes_d, n_d, hits_d, (kd50, ka50),
                            lambda c=codes_d: kernels.moment(
                                *c, kd50, ka50, True),
                            lambda c=codes_d: kernels.moment_plain(
@@ -267,18 +282,20 @@ def kernel_parity(fa, bam, events, reps: int):
                 report["moment"]["max_abs_err"], err)
     for body in DUP_SIZES:
         for k in (10, 40):
-            codes, hits, _, kd, ka = rows(find("DUP", body), "rdd", k)
+            codes, lens, hits, _, kd, ka = rows(find("DUP", body), "rdd",
+                                                k)
             h_kept = kernels.kept_hist_plain(*codes, kd, ka)
             found, z = intercept_z(h_kept, codes[0].shape[2])
             z = torch.where(found, z + 2 * codes[3], 0).to(torch.int32)
             print(f"intercepts at DUP body {body}, k={k}: "
                   f"{int(found.sum())} of {found.numel()} rows",
                   flush=True)
-            _compare("kept_hist", body, k, codes, hits, (kd, ka),
+            _compare("kept_hist", body, k, codes, lens, hits, (kd, ka),
                      lambda c=codes: kernels.kept_hist(*c, kd, ka),
                      lambda c=codes: kernels.kept_hist_plain(*c, kd, ka),
                      reps, report)
-            _compare("rdd_moment", body, k, codes, hits, (kd, ka, z),
+            _compare("rdd_moment", body, k, codes, lens, hits,
+                     (kd, ka, z),
                      lambda c=codes: kernels.rdd_moment(*c, kd, ka, z),
                      lambda c=codes: kernels.rdd_moment_plain(*c, kd, ka,
                                                               z),
@@ -305,9 +322,9 @@ def repeat_parity(seed: int, reps: int, report) -> None:
     for name, (H, R) in REPEAT_AT.items():
         if name not in build.GRID_POINTS:
             continue
-        h, r, rl, m, _ = batch_from_numpy(
-            *repeat_rows(H, R, 20, seed, ms=(0, 23)), k // 10 - 1,
-            torch.device("cuda"))
+        batch = repeat_rows(H, R, 20, seed, ms=(0, 23))
+        h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1,
+                                          torch.device("cuda"))
         codes = (*row_codes(h, r, rl, k), m, rl, k)
         h_d, h_a, scal = kernels.hist_plain(*codes)
         hits = int(scal[:, :2].sum())
@@ -333,8 +350,9 @@ def repeat_parity(seed: int, reps: int, report) -> None:
         kern = functools.partial(getattr(kernels, name), *codes, *args)
         plain = functools.partial(getattr(kernels, f"{name}_plain"), *codes,
                                   *args)
-        err, ms_k, _, bound, _ = _measure(name, codes, hits, tables, kern,
-                                          plain, reps, "repeat")
+        err, ms_k, _, bound, _ = _measure(name, codes, _hap_lens(batch[0]),
+                                          hits, tables, kern, plain, reps,
+                                          "repeat")
         report[name].update(
             max_abs_err=max(report[name]["max_abs_err"], err),
             repeat_ms=ms_k, repeat_bound_ms=bound)
@@ -355,6 +373,48 @@ def walk_waves(report) -> None:
               f"rows, {per_sm} resident per SM x {sms} SMs: {waves:.2f} "
               f"waves", flush=True)
         report[name]["waves"] = waves
+
+
+def selfstats_parity(fa, events, reps: int, report) -> None:
+    """hist on the window refiner's self-stats row (the hap as its own
+    read: m = 0, rlen = length, H = R) at the refiner's largest shape: the
+    bed worklist's largest DUP alt hap (the body twice, 13 kb), H = R =
+    16384, k = 10 and 40; adds the k = 10 numbers to hist's report."""
+    import numpy as np
+    import torch
+    from vapor_tpu_torch.engine import kernels, oracle
+    from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD, bucket_for
+    from vapor_tpu_torch.engine.fused import row_codes
+    from vapor_tpu_torch.grammar.letters import flank_length_calculate
+    from vapor_tpu_torch.io.fasta import FastaFile
+    _, s, e = next(ev for ev in events if ev[0] == "DUP" and
+                   ev[2] - ev[1] == DUP_SIZES[-1])
+    flank = flank_length_calculate(["chrE", s, e])
+    hap = FastaFile(fa).fetch("chrE", s - flank, e + flank)
+    codes = oracle.encode(hap[:flank] + 2 * hap[flank:-flank] + hap[-flank:])
+    H = bucket_for(len(codes) + 1)
+    row = np.full((1, H), HAP_PAD, np.uint8)
+    row[0, :len(codes)] = codes
+    dev = torch.device("cuda")
+    h = torch.from_numpy(row).to(dev)
+    n = torch.tensor([len(codes)], dtype=torch.int32, device=dev)
+    reads = torch.where(torch.arange(H, device=dev) < n[:, None].long(), h,
+                        torch.full_like(h, READ_PAD))
+    for k in (10, 40):
+        c = (*row_codes(h, reads, n, k), torch.zeros_like(n), n, k)
+        hits = int(kernels.hist_plain(*c)[2][:, :2].sum())
+        err, ms_k, ms_p, bound, _ = _measure(
+            "hist", c, [len(codes)], hits, (),
+            functools.partial(kernels.hist, *c),
+            functools.partial(kernels.hist_plain, *c), reps,
+            f"self-stats length {len(codes)}")
+        report["hist"]["max_abs_err"] = max(report["hist"]["max_abs_err"],
+                                            err)
+        if k == 10:
+            report["hist"].update(
+                selfstats_ms=ms_k, selfstats_plain_ms=ms_p,
+                selfstats_bound_ms=bound,
+                selfstats_shape=f"B=1 H=R={H} length={len(codes)} k={k}")
 
 
 # ---------------------------------------------------------------------------
@@ -389,28 +449,43 @@ def _copy_lines(src: str, dst: str, keep) -> str:
 
 def _timed_run(label, counted, *cli_args, **cli_kw):
     """Drives one main path on the card with every count set to 0 just
-    before it; checks the kernels of that path launched and no plain
-    version ran on CUDA tensors.  Returns (rows, seconds, launches)."""
+    before it; checks the kernels of that path launched, the refiner's
+    self-stats rounds went through hist, and no plain version ran on
+    CUDA tensors.  Prints the window refiner's tallies and the launches
+    by H x R, hist's self-stats launches apart.  Returns (rows, seconds,
+    launches)."""
     import torch
-    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine import kernels, window_device
     kernels.reset_counts()
+    band0 = dict(window_device.BAND_STATS)
     t0 = time.perf_counter()
     rows = run_cli(*cli_args, **cli_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     plain_on_cuda = dict(kernels.PLAIN_CUDA_CALLS)
+    shapes = dict(kernels.LAUNCH_SHAPES)
+    band = {x: window_device.BAND_STATS[x] - band0[x] for x in band0}
+    refiner = {H: n for (_, route, H, _), n in sorted(shapes.items())
+               if route == "selfstats"}
     _require(all(launches[n] > 0 for n in counted),
              f"{label}: a kernel of the path never launched: {launches}")
     _require(not any(plain_on_cuda.values()),
              f"{label}: plain versions ran on CUDA tensors: "
              f"{plain_on_cuda}")
-    shapes = getattr(kernels, "LAUNCH_SHAPES", {})   # absent in older trees
+    _require(band["stat_rounds"] > 0 and
+             0 < sum(refiner.values()) <= band["stat_rounds"],
+             f"{label}: {band['stat_rounds']} refiner rounds in "
+             f"{sum(refiner.values())} self-stats launches")
+    print(f"{label} window refiner: {band}; self-stats launches of hist by "
+          f"H = R: {refiner}", flush=True)
     for name in kernels.NAMES:
-        by = ", ".join(f"{H}x{R}: {n}" for (x, H, R), n
-                       in sorted(shapes.items()) if x == name)
+        by = ", ".join(f"{H}x{R}: {n}" for (x, route, H, R), n
+                       in sorted(shapes.items())
+                       if x == name and route == "score")
         if by:
-            print(f"{label} launches of {name} by H x R: {by}", flush=True)
+            print(f"{label} score launches of {name} by H x R: {by}",
+                  flush=True)
     return rows, wall, launches
 
 
@@ -456,20 +531,17 @@ def main() -> int:
         report = kernel_parity(fa, bam, events, args.reps)
         repeat_parity(args.seed, args.reps, report)
         walk_waves(report)
+        selfstats_parity(fa, events, args.reps, report)
         print("phase 3 kernel parity: all equal", flush=True)
 
         # bed: DEL (del, w10 junction), INV (m1b, w10 junction) and DUP
-        # (rdd) run all six kernels
+        # (rdd) run all six kernels; the default backend first, then
+        # torch-nobatch (one launch per request), which must agree
         rows, wall, launches = _timed_run(
             "bed", kernels.NAMES, "bed", fa, bam, bed,
             os.path.join(tmp, "cuda.vapor"))
         _require(len(rows) == len(events),
                  f"{len(rows)} rows for {len(events)} events")
-        whole_dups = sum(1 for t, s, e in events if t == "DUP")
-        _require(all(launches[n] >= 2 * whole_dups
-                     for n in ("kept_hist", "rdd_moment")),
-                 f"fewer than 2 rdd launches per whole-event DUP "
-                 f"({whole_dups}): {launches}")
         called = [r.split("\t") for r in rows if r.split("\t")[5] != "NA"]
         _require(all(math.isfinite(float(c[5])) for c in called),
                  "non-finite quality score")
@@ -477,13 +549,27 @@ def main() -> int:
                      if r.split("\t")[3] == "TANDUP"),
                  "a tandem DUP was not scored")
         n_reads = sum(len(c[9].split(",")) for c in called)
+        rows_nb, wall_nb, launches_nb = _timed_run(
+            "bed torch-nobatch", kernels.NAMES, "bed", fa, bam, bed,
+            os.path.join(tmp, "nobatch.vapor"), backend="torch-nobatch")
+        _require(rows_nb == rows, "bed: torch-nobatch differs from the "
+                 "default backend")
+        # unbatched, each whole-event DUP launches both rdd kernels for
+        # its ref and alt haps at least (batching merges them)
+        whole_dups = sum(1 for t, s, e in events if t == "DUP")
+        _require(all(launches_nb[n] >= 2 * whole_dups
+                     for n in ("kept_hist", "rdd_moment")),
+                 f"fewer than 2 rdd launches per whole-event DUP "
+                 f"({whole_dups}): {launches_nb}")
         print(f"phase 4 end to end, bed: {len(rows)} events, {len(called)} "
               f"called, {n_reads} reads scored in {wall:.2f} s: "
               f"{len(rows) / wall:.2f} events/s, {n_reads / wall:.1f} "
-              f"reads/s; launches {launches}", flush=True)
+              f"reads/s; launches {launches}; torch-nobatch equal, "
+              f"{wall_nb:.2f} s: {len(rows) / wall_nb:.2f} events/s; "
+              f"launches {launches_nb}", flush=True)
 
         # vcf: DISDUP, DUP_INV and the complex event all score by rdd
-        # vcf mode rewrites <sv-input>.vapor: run on a copy of the input
+        # vcf mode rewrites <sv-input>.vapor: run on copies of the input
         vrun = shutil.copyfile(vcf, os.path.join(vdir, "cuda.vcf"))
         vrows, vwall, vlaunches = _timed_run(
             "vcf", ("hist", "kept_hist", "rdd_moment"), "vcf", vfa, vbam,
@@ -496,10 +582,19 @@ def main() -> int:
         gs = [float(r.split("VaPor_GS=")[1].split(";")[0]) for r in vrows]
         _require(all(math.isfinite(x) for x in gs), "non-finite GS")
         v_reads = sum(len(x.split(",")) for x in recs)
+        vrows_nb, vwall_nb, vlaunches_nb = _timed_run(
+            "vcf torch-nobatch", ("hist", "kept_hist", "rdd_moment"), "vcf",
+            vfa, vbam, shutil.copyfile(vcf, os.path.join(vdir,
+                                                          "nobatch.vcf")),
+            backend="torch-nobatch")
+        _require(vrows_nb == vrows, "vcf: torch-nobatch differs from the "
+                 "default backend")
         print(f"phase 4 end to end, vcf: {len(vrows)} events, {v_reads} "
               f"reads scored in {vwall:.2f} s: {len(vrows) / vwall:.2f} "
               f"events/s, {v_reads / vwall:.1f} reads/s; launches "
-              f"{vlaunches}", flush=True)
+              f"{vlaunches}; torch-nobatch equal, {vwall_nb:.2f} s: "
+              f"{len(vrows) / vwall_nb:.2f} events/s; launches "
+              f"{vlaunches_nb}", flush=True)
         for name in kernels.NAMES:
             launches[name] += vlaunches[name]
 
@@ -547,8 +642,10 @@ def main() -> int:
          "library_ms": None, "shape": report[name]["shape"],
          "small_ms": report[name]["small_ms"],
          "small_shape": report[name]["small_shape"],
-         **{x: report[name][x] for x in ("repeat_ms", "repeat_bound_ms",
-                                         "waves") if x in report[name]}}
+         **{x: report[name][x] for x in (
+             "repeat_ms", "repeat_bound_ms", "waves", "selfstats_ms",
+             "selfstats_plain_ms", "selfstats_bound_ms", "selfstats_shape")
+            if x in report[name]}}
         for name in kernels.NAMES]}))
     print(_card_line())
     print(json.dumps({"ok": True, "device": {

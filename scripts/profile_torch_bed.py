@@ -3,43 +3,116 @@
 
 Builds chip_smoke.py's synthetic bed worklist (same seed, 34 events:
 DEL, INV and tandem DUP), runs the bed CLI once to warm up (kernel
-build, first launches), then:
+build, first launches), then, through the default backend (cross-event
+batching and the device window refiner; --backend torch-nobatch for the
+unbatched one):
 
-1. a run under torch.profiler (CPU + CUDA activities): the device time
+1. a run with no instrumentation: wall time, events/s, kernel launches,
+   the window refiner's tallies (BAND_STATS) and its self-stats
+   launches;
+2. a run under torch.profiler (CPU + CUDA activities): the device time
    of every kernel by name, summed, against the run's wall time, which
    gives the device's busy and idle shares;
-2. a run under cProfile: the host time of the pipeline's stages
-   (read gather, window refiner, haplotype fetch, encoding and launch,
-   waits for results, the oracle, output).
+3. a run under cProfile: the host time of the pipeline's stages (read
+   gather, window refiner, haplotype fetch, request submission, the
+   launches, waits for the card, output).  Under Python 3.12 cProfile
+   also records the band-QC pool's threads (its events are process-wide),
+   but calls of two threads interleave on one stack, so their times
+   there are rough;
+4. a run with wall-clock timers around the stages, summed by thread
+   (main and the band-QC pool), without the profiler's overhead.
 
 Prints one JSON object.
 
-    python3 scripts/profile_torch_bed.py [--seed N]
+    python3 scripts/profile_torch_bed.py [--seed N] [--backend B]
 """
 from __future__ import annotations
 
 import argparse
 import cProfile
+import functools
 import json
 import os
 import pstats
 import re
+import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import Counter
+from concurrent.futures import Future
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# host stages: (label, module file suffix, function name)
+# cProfile stages: (label, file path suffix, function name)
 STAGES = [
-    ("read gather", "io/reads.py", "collect_event_reads"),
-    ("window refiner", "engine/window.py", "window_size_refine"),
-    ("haplotype fetch", "validators.py", "fetch"),
-    ("encode + launch", "engine/fused.py", "_submit"),
-    ("rows to host (waits for the card)", "engine/fused.py", "__init__"),
-    ("output rows", "writers/tsv.py", "append_result_row"),
+    ("read gather", "vapor_tpu_torch/io/reads.py", "collect_event_reads"),
+    ("window refiner, device (refine_gen)",
+     "vapor_tpu_torch/engine/window_device.py", "refine_gen"),
+    ("window refiner, band QC (pool threads)",
+     "vapor_tpu_torch/engine/window_device.py", "_band_qc"),
+    ("window refiner, host (unbucketable or out-of-alphabet haps)",
+     "vapor_tpu_torch/engine/window.py", "window_size_refine"),
+    ("haplotype fetch", "vapor_tpu_torch/validators.py", "fetch"),
+    ("request submit", "vapor_tpu_torch/engine/batching.py", "_submit"),
+    ("encode + launch", "vapor_tpu_torch/engine/batching.py", "_launch"),
+    ("encode + launch, unbatched", "vapor_tpu_torch/engine/fused.py",
+     "_submit"),
+    ("wait for the card", "torch/cuda/streams.py", "synchronize"),
+    ("rows to host, unbatched (waits for the card)",
+     "vapor_tpu_torch/engine/fused.py", "__init__"),
+    ("wait for the band QC", "concurrent/futures/_base.py", "result"),
+    ("output rows", "vapor_tpu_torch/writers/tsv.py", "append_result_row"),
 ]
+
+
+def _thread_role(name: str) -> str:
+    return re.sub(r"_\d+$", "", name)
+
+
+def _timers():
+    """Wraps the stages' functions with wall-clock timers summed by
+    (stage, thread); returns (totals, calls, restore)."""
+    import torch
+    from vapor_tpu_torch import validators
+    from vapor_tpu_torch.engine import batching, fused, window_device
+    totals, calls = Counter(), Counter()
+    undo = []
+
+    def wrap(owner, attr, label):
+        fn = getattr(owner, attr)
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                key = (label, _thread_role(threading.current_thread().name))
+                totals[key] += time.perf_counter() - t0
+                calls[key] += 1
+        setattr(owner, attr, timed)
+        undo.append((owner, attr, fn))
+
+    wrap(validators, "collect_event_reads", "read gather")
+    wrap(window_device.DeviceWindowRefiner, "_stats_async",
+         "window refiner, device step submit")
+    wrap(window_device, "_band_qc", "window refiner, band QC")
+    wrap(window_device, "_host_refine", "window refiner, host")
+    wrap(batching.BatchingBackend, "_submit", "request submit")
+    wrap(batching.BatchingBackend, "_launch", "encode + launch")
+    wrap(fused.FusedBackend, "_submit", "encode + launch, unbatched")
+    wrap(torch.cuda.Event, "synchronize", "wait for the card")
+    wrap(fused.FusedStats, "__init__",
+         "rows to host, unbatched (waits for the card)")
+    wrap(Future, "result", "wait for the band QC")
+
+    def restore():
+        for owner, attr, fn in undo:
+            setattr(owner, attr, fn)
+    return totals, calls, restore
 
 
 def _device_us(evt) -> float:
@@ -52,6 +125,8 @@ def _device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--backend", default="torch",
+                    choices=["torch", "torch-nobatch"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -59,7 +134,7 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
     from vapor_tpu_torch.cli import main as cli
-    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine import kernels, window_device
     from vapor_tpu_torch.sim.scale import build_event_worklist
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -69,17 +144,23 @@ def main() -> int:
             rc = cli(["bed", "--sv-input", bed, "--reference", fa,
                       "--pacbio-input", bam, "--output-path",
                       os.path.join(tmp, "figs"), "--output-file",
-                      os.path.join(tmp, f"{tag}.vapor"), "--no-figures"])
+                      os.path.join(tmp, f"{tag}.vapor"), "--no-figures",
+                      "--backend", args.backend])
             torch.cuda.synchronize()
             if rc:
                 raise RuntimeError(f"bed run exited {rc}")
 
         run("warm")
         kernels.reset_counts()
+        band0 = dict(window_device.BAND_STATS)
         t0 = time.perf_counter()
         run("plain")
         wall_plain = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        band = {x: window_device.BAND_STATS[x] - band0[x] for x in band0}
+        refiner_launches = {H: n for (_, route, H, _), n
+                            in sorted(kernels.LAUNCH_SHAPES.items())
+                            if route == "selfstats"}
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -106,15 +187,29 @@ def main() -> int:
         for label, path, func in STAGES:
             stages[label] = sum(
                 row[3] for (file, _, name), row in stats.items()
-                if name == func and file.endswith(
-                    os.path.join("vapor_tpu_torch", path)))
+                if name == func and file.endswith(path))
+
+        totals, calls, restore = _timers()
+        try:
+            t0 = time.perf_counter()
+            run("timed")
+            wall_timed = time.perf_counter() - t0
+        finally:
+            restore()
 
     out = {
+        "backend": args.backend,
         "card": torch.cuda.get_device_name(0),
+        "card_name_power_limit": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
         "events": len(events),
         "wall_s": wall_plain,
         "events_per_s": len(events) / wall_plain,
         "launches": launches,
+        "band_stats": band,
+        "self_stats_launches_by_H": refiner_launches,
         "traced_wall_s": wall_traced,
         "device_busy_s": device_s,
         "device_idle_share": 1 - device_s / wall_traced,
@@ -122,6 +217,10 @@ def main() -> int:
         "top_device_kernels_s": {k: v / 1e6 for k, v in top},
         "cprofile_wall_s": wall_host,
         "host_stage_cumulative_s": stages,
+        "timed_wall_s": wall_timed,
+        "stage_wall_s_by_thread": {
+            f"{label} [{role}]": {"s": t, "calls": calls[label, role]}
+            for (label, role), t in sorted(totals.items())},
     }
     print(json.dumps(out, indent=1))
     return 0

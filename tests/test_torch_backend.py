@@ -141,7 +141,10 @@ def test_redefine_diagonal_on_dup_haps_matches_oracle(backends):
 
 
 def test_get_backend_names():
+    from vapor_tpu_torch.engine.batching import BatchingBackend
     assert isinstance(get_backend("numpy"), NumpyBackend)
     assert get_backend("torch", "cpu").device.type == "cpu"
+    assert type(get_backend("torch", "cpu")) is BatchingBackend
+    assert type(get_backend("torch-nobatch", "cpu")) is FusedBackend
     with pytest.raises(ValueError):
         get_backend("jax")

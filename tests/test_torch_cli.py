@@ -1,9 +1,10 @@
 """`python -m vapor_tpu_torch {bed,vcf,ins,svelter} --device cpu`
 reproduces every golden of fixtures/golden/ byte for byte, on the cases
-that tests/golden_cases.py builds; `pdf` equals vapor_tpu's own pdf
-mode."""
+that tests/golden_cases.py builds, through the default (batched) backend
+and through torch-nobatch; `pdf` equals vapor_tpu's own pdf mode."""
 import os
 import shutil
+import sys
 
 import pytest
 
@@ -87,6 +88,43 @@ def test_bed_golden_on_cpu(name, tmp_path):
 @pytest.mark.parametrize("name", sorted(GOLDENS))
 def test_golden_on_cpu(name, tmp_path, monkeypatch):
     _same_as_golden(GOLDENS[name](str(tmp_path), monkeypatch), name)
+
+
+@pytest.mark.parametrize("name", [*BED_GOLDENS, *sorted(GOLDENS)])
+def test_golden_on_cpu_unbatched(name, tmp_path, monkeypatch):
+    """--backend torch-nobatch (a launch per request, each refiner step
+    on its own) gives the goldens' bytes, as the batched default does."""
+    monkeypatch.setattr(sys.modules[__name__], "main", lambda argv: tcli.main(
+        [*argv, "--backend", "torch-nobatch"]))
+    d = str(tmp_path)
+    out = _bed(name, d) if name in BED_CASES or name == "bed_junction_big" \
+        else GOLDENS[name](d, monkeypatch)
+    _same_as_golden(out, name)
+
+
+def test_device_refiner_equals_host_refiner_on_dup(tmp_path):
+    """A tandem DUP through the CLI (vapor_tpu.sim.synth's case of
+    test_refiner_integration_with_backend): the device refiner, through
+    the batching backend, gives the bytes of the numpy backend's host
+    refiner."""
+    from vapor_tpu.sim.synth import build_test_case
+    from vapor_tpu_torch.engine.window_device import BAND_STATS
+    case = build_test_case(str(tmp_path), genome_len=16000,
+                           sv=("DUP", 7000, 7400), read_len=2400,
+                           n_donor=6, n_ref=6, seed=33)
+    bed = tmp_path / "svs.bed"
+    bed.write_text("chrS\t7000\t7400\tSV1\tDUP\n")
+    outs = {}
+    for be in ("numpy", "torch"):
+        rounds = BAND_STATS["stat_rounds"]
+        out = str(tmp_path / f"o_{be}.vapor")
+        _run(_args("bed", str(bed), case, str(tmp_path), "--output-file",
+                   out, "--backend", be))
+        assert (BAND_STATS["stat_rounds"] > rounds) == (be == "torch")
+        with open(out) as fh:
+            outs[be] = fh.read()
+    assert outs["numpy"] == outs["torch"]
+    assert outs["torch"].count("\n") == 2
 
 
 def test_bed_dup_golden_on_numpy_backend(tmp_path):

@@ -1,5 +1,7 @@
-"""vapor_tpu_torch's CUDA kernels against their plain PyTorch versions,
-and the fused engine on the card against the same engine on the CPU.
+"""vapor_tpu_torch's CUDA kernels against their plain PyTorch versions
+(the window refiner's self-stats rows through hist included), the fused
+engine on the card against the same engine on the CPU, and the batching
+backend on the card against the unbatched one.
 
 Needs a CUDA card and nvcc: each test skips without one.  Run on the
 card with  python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -148,3 +150,116 @@ def test_fused_batch_card_equals_cpu(cuda, scorer):
                              H=1024, R=1536, scorer=scorer)
         for g, w in zip(on_card, on_cpu):
             assert torch.equal(g.cpu(), w)
+
+
+def _self_rows(H, B, seed):
+    """(B, H) hap rows of mixed lengths up to H - 1 (one shorter than
+    k = 40, one full) and their lengths: random bases, every third row
+    with a tandem block of a 37 bp unit, every fourth in lower case."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGTacgt", np.uint8)
+    haps = np.full((B, H), HAP_PAD, np.uint8)
+    lengths = rng.integers(H // 3, H, B).astype(np.int32)
+    lengths[0] = H - 1
+    if B > 1:
+        lengths[1] = 33
+    for b in range(B):
+        n = int(lengths[b])
+        row = bases[rng.integers(0, 4, n) + 4 * (b % 4 == 3)]
+        if b % 3 == 2 and n > 600:
+            unit = row[:37]
+            row[100:100 + 37 * 12] = np.tile(unit, 12)
+        haps[b, :n] = row
+    return haps, lengths
+
+
+@pytest.mark.parametrize("H", [512, 4096, 16384])
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_self_stats_route_equals_plain(cuda, H, k):
+    """The window refiner's self-stats rows (the hap as its own read,
+    m = 0, rlen = length, H = R) through the hist kernel against its
+    plain version, B = 1 and a full flush of the (H, window) group, and
+    the device reduction against the same reduction of the plain
+    histogram."""
+    from vapor_tpu_torch.engine.batching import _row_cap
+    from vapor_tpu_torch.engine.window_device import self_stats_rows
+    for B in (1, _row_cap(H, H)):
+        haps, lengths = _self_rows(H, B, seed=H + k + B)
+        h = torch.from_numpy(haps).to(cuda)
+        n = torch.from_numpy(lengths).to(cuda)
+        reads = torch.where(torch.arange(H, device=cuda) < n[:, None].long(),
+                            h, torch.full_like(h, READ_PAD))
+        codes = (*row_codes(h, reads, n, k), torch.zeros_like(n), n, k)
+        launched = kernels.LAUNCHES["hist"]
+        routed = kernels.LAUNCH_SHAPES["hist", "selfstats", H, H]
+        got = kernels.hist(*codes)
+        want = kernels.hist_plain(*codes)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        rows = self_stats_rows(h, n, k)
+        assert kernels.LAUNCHES["hist"] == launched + 2
+        assert kernels.LAUNCH_SHAPES["hist", "selfstats", H, H] == routed + 1
+        w_d = want[0].long()
+        assert torch.equal(rows, torch.stack(
+            [w_d.sum(1), w_d[:, H], w_d[:, :H].sum(1)], 1))
+        assert int(rows[0, 0]) > 0
+        if B > 1:
+            assert int(rows[1, 0]) == (0 if k >= 40 else int(rows[1, 1]))
+
+
+def _events(seed, n):
+    """n DEL-like events (ref, alt, reads) of 300-900 bp haps, 2-7 reads
+    each with 8% substitutions and varied m."""
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    out = []
+    for _ in range(n):
+        L = int(rng.choice([300, 400, 900]))
+        ref = "".join(bases[rng.integers(0, 4, L)])
+        alt = ref[:L // 3] + ref[2 * L // 3:]
+        reads = []
+        for i in range(int(rng.integers(2, 8))):
+            donor = list(alt if rng.random() < 0.5 else ref)
+            donor = donor[:int(rng.integers(len(donor) // 2, len(donor)))]
+            for p in rng.integers(0, len(donor), len(donor) // 12):
+                donor[p] = bases[rng.integers(0, 4)]
+            reads.append(["".join(donor), int(rng.choice([0, 0, 13])),
+                          f"r{i}"])
+        out.append((ref, alt, reads))
+    return out
+
+
+def test_batching_on_card_equals_unbatched_under_concurrency(cuda):
+    """BatchingBackend('cuda') against FusedBackend('cuda'), requests
+    from 6 threads (scores and refiner self-stats rows), five rounds:
+    a packed row read before its copy ended would differ somewhere."""
+    from vapor_tpu_torch.engine.batching import BatchingBackend
+    from vapor_tpu_torch.engine.fused import FusedBackend
+    from vapor_tpu_torch.engine.window_device import self_stats_rows
+    from concurrent.futures import ThreadPoolExecutor
+    scorers = ["abs_dis_m1b", "within_10perc_m1b", "redefine_diagonal"]
+    evs = _events(17, 24)
+    base = FusedBackend("cuda")
+    jobs = [(scorers[i % 3], ev, [10, 20][i % 2]) for i, ev in
+            enumerate(evs)]
+    want = [base.score_batch(s, *ev, w) for s, ev, w in jobs]
+    want_del = [base.score_del_batch(*ev, 10) for ev in evs[:6]]
+    hap_rows = [base._encode_hap(ev[0], 1024) for ev in evs]
+    want_self = [self_stats_rows(torch.from_numpy(h[None]).to(cuda),
+                                 torch.tensor([len(ev[0])], dtype=torch.int32,
+                                              device=cuda), 20)[0].tolist()
+                 for h, ev in zip(hap_rows, evs)]
+    bat = BatchingBackend("cuda")
+    for _ in range(5):
+        with ThreadPoolExecutor(max_workers=6) as pool:
+            got = list(pool.map(
+                lambda j: bat.score_batch(j[0], *j[1], j[2]), jobs))
+            got_del = list(pool.map(
+                lambda ev: bat.score_del_batch(*ev, 10), evs[:6]))
+            futs = [bat.submit_selfstats(h, len(ev[0]), 20, 1024)
+                    for h, ev in zip(hap_rows, evs)]
+            got_self = list(pool.map(
+                lambda f: f.result(timeout=120).tolist(), futs))
+        assert got == want
+        assert got_del == want_del
+        assert got_self == want_self

@@ -33,6 +33,9 @@ def _imported(path):
 def test_no_file_imports_jax_or_vapor_tpu():
     files = list(_port_files())
     assert len(files) > 20
+    names = {os.path.relpath(p, ROOT) for p in files}
+    assert {"vapor_tpu_torch/engine/batching.py",
+            "vapor_tpu_torch/engine/window_device.py"} <= names
     bad = [(os.path.relpath(p, ROOT), name) for p in files
            for name in _imported(p)
            if name.split(".")[0] in FORBIDDEN]
@@ -41,7 +44,9 @@ def test_no_file_imports_jax_or_vapor_tpu():
 
 def test_import_loads_neither():
     code = ("import sys, vapor_tpu_torch.cli, "
-            "vapor_tpu_torch.engine.fused, vapor_tpu_torch.sim.scale; "
+            "vapor_tpu_torch.engine.fused, vapor_tpu_torch.sim.scale, "
+            "vapor_tpu_torch.engine.batching, "
+            "vapor_tpu_torch.engine.window_device; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'vapor_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -54,5 +59,6 @@ def test_torch_backend_without_card_raises():
     from vapor_tpu_torch.engine.scoring import get_backend
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_backend("torch")
+    for name in ("torch", "torch-nobatch"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_backend(name)

@@ -3,9 +3,9 @@ svelter,pdf} ...``.
 
 The argument surface is vapor-tpu's (reference ``vapor`` script,
 vapor:287-296, plus the framework flags), with ``--device {cuda,cpu}``
-and ``--backend {torch,numpy}``.  ``scatter``, ``--shard-by-contig`` and
-``--trace`` are not ported and exit with code 2; ``--num-shards`` splits
-a worklist round robin.
+and ``--backend {torch,torch-nobatch,numpy}``.  ``scatter``,
+``--shard-by-contig`` and ``--trace`` are not ported and exit with code
+2; ``--num-shards`` splits a worklist round robin.
 
 Flow quirks preserved from the reference:
 * DEL/INV rows are keyed ``chrom:start:end:TYPE`` and scored events
@@ -65,8 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--PB-supp", required=False,
                         help="minimum number of evaluable PacBio reads")
     parser.add_argument("--backend", default="torch",
-                        choices=["torch", "numpy"],
-                        help="scoring backend (default: torch)")
+                        choices=["torch", "torch-nobatch", "numpy"],
+                        help="scoring backend (default: torch, the fused "
+                             "engine with cross-event batching and the "
+                             "device window refiner; torch-nobatch "
+                             "launches each request on its own)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="device of the torch backend (default: cuda; "
                              "a missing card is an error)")

@@ -230,9 +230,12 @@ def row_codes(haps, reads, rlens, k: int):
             rc_dot_codes(derive_rc_rows(reads, rlens), rlens, k))
 
 
-def fused_rows(haps, reads, rlens, ms, k: int, scorer: str):
+def fused_rows(haps, reads, rlens, ms, k: int, scorer: str,
+               hap_index=None):
     """Statistics of each (read, hap) row; the counterpart of the JAX
     engine's per-row ``_fused_one`` for modes m1b, w10, del and rdd.
+    With hap_index (B,) int64, haps holds U unique rows and row b's hap
+    is haps[hap_index[b]]: each is packed once and the codes expanded.
 
     -> h_d, h_a (B, W) int32 histograms and packed int64 rows
     [n_f, n_r, i_min, i_max, cnt, sum_absd, w10] (7 columns), followed
@@ -242,7 +245,10 @@ def fused_rows(haps, reads, rlens, ms, k: int, scorer: str):
     if scorer not in MODES:
         raise ValueError(f"unknown device mode {scorer!r}; want one of "
                          f"{MODES}")
-    codes = (*row_codes(haps, reads, rlens, k), ms, rlens, k)
+    ch, cf, cd = row_codes(haps, reads, rlens, k)
+    if hap_index is not None:
+        ch = ch.index_select(0, hap_index)
+    codes = (ch, cf, cd, ms, rlens, k)
     h_d, h_a, scal = kernels.hist(*codes)
     if scorer in ("m1b", "del", "rdd"):
         kd = kept_table(h_d, 10, 10, False)
@@ -279,27 +285,35 @@ def batch_from_numpy(haps: np.ndarray, reads: np.ndarray,
 
 
 def fused_batch(haps, reads, rlens, ms, k_idx: int, H: int, R: int,
-                scorer: str):
+                scorer: str, hap_index=None):
     """Batched per-(read, hap) statistics: the production scoring entry.
 
     Rows go through in groups of min(8, B), the JAX engine's row
     grouping: pad rows carry HAP_PAD / READ_PAD codes, rlen = 1 and m = 0,
     so they hold no eligible cell (the kernels skip them outright), and
-    are cut off again before returning.  -> (h_d, h_a, packed)."""
+    are cut off again before returning.  With hap_index (B,) int64, haps
+    holds (U, H) unique rows and row b scores haps[hap_index[b]] (the
+    batching backend's deduplicated upload; the per-row result does not
+    change).  -> (h_d, h_a, packed)."""
     if tuple(haps.shape[1:]) != (H,) or tuple(reads.shape[1:]) != (R,):
         raise ValueError(f"want (B, {H}) haps and (B, {R}) reads, got "
                          f"{tuple(haps.shape)} and {tuple(reads.shape)}")
     B = reads.shape[0]
     pad = (-B) % min(8, B)
     if pad:
-        def grow(x, value):
-            return torch.cat([x, torch.full((pad,) + x.shape[1:], value,
+        def grow(x, value, n=pad):
+            return torch.cat([x, torch.full((n,) + x.shape[1:], value,
                                             dtype=x.dtype,
                                             device=x.device)])
-        haps, reads = grow(haps, HAP_PAD), grow(reads, READ_PAD)
-        rlens, ms = grow(rlens, 1), grow(ms, 0)
+        if hap_index is not None:     # pad rows -> one all-HAP_PAD row
+            hap_index = grow(hap_index, haps.shape[0])
+            haps = grow(haps, HAP_PAD, 1)
+        else:
+            haps = grow(haps, HAP_PAD)
+        reads, rlens, ms = grow(reads, READ_PAD), grow(rlens, 1), \
+            grow(ms, 0)
     h_d, h_a, packed = fused_rows(haps, reads, rlens, ms,
-                                  10 * (int(k_idx) + 1), scorer)
+                                  10 * (int(k_idx) + 1), scorer, hap_index)
     return h_d[:B], h_a[:B], packed[:B]
 
 
@@ -309,14 +323,16 @@ def fused_batch(haps, reads, rlens, ms, k_idx: int, H: int, R: int,
 
 class FusedStats:
     """Exact-integer host view of one fused batch of device mode `mode`
-    (the packed rows cross to the host in one copy; the histograms stay
-    on the device)."""
+    (the packed rows cross to the host in one copy, or arrive there as
+    an int64 array from the batching backend; the histograms stay on
+    the device)."""
 
     def __init__(self, h_d, h_a, packed, mode: str):
         if mode not in MODES:
             raise ValueError(f"unknown device mode {mode!r}")
         self.h_d, self.h_a = h_d, h_a
-        p = packed.cpu().numpy()
+        p = packed if isinstance(packed, np.ndarray) else \
+            packed.cpu().numpy()
         self.n_dots = p[:, 0] + p[:, 1]
         self.i_min = p[:, 2]
         self.i_max = p[:, 3]
@@ -351,7 +367,7 @@ class FusedBackend:
     """Device backend: one fused pass per (scorer, haplotype, read
     group) on `device`."""
 
-    name = "torch"
+    name = "torch-nobatch"
 
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
@@ -384,11 +400,13 @@ class FusedBackend:
         """Launches one (hap, reads) request; returns a future-like
         handle whose result is (h_d, h_a, packed)."""
         fw, rlens, ms = enc
-        haps = np.broadcast_to(hap_codes, (fw.shape[0], H))
+        # the one hap row, which every read row indexes
         return _Ready(fused_batch(
-            *batch_from_numpy(haps, fw, rlens, ms, window // 10 - 1,
-                              self.device),
-            H=H, R=R, scorer=scorer))
+            *batch_from_numpy(hap_codes[None], fw, rlens, ms,
+                              window // 10 - 1, self.device),
+            H=H, R=R, scorer=scorer,
+            hap_index=torch.zeros(fw.shape[0], dtype=torch.int64,
+                                  device=self.device)))
 
     def score_del_batch_async(self, ref_seq: str, alt_seq: str,
                               reads: Sequence[Sequence], window: int):

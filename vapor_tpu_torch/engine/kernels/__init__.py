@@ -16,7 +16,8 @@ hit (0..2).  Keep tables are (B, W) bool over the bins j - i + H
 (``keep_d``) and j + i (``keep_a``), W = hist_width(H, R).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the
-launch in ``LAUNCHES``, and by (name, H, R) in ``LAUNCH_SHAPES``; for
+launch in ``LAUNCHES``, and by (name, route, H, R) in ``LAUNCH_SHAPES``
+(route "score", or "selfstats" for ``hist``'s window-refiner rows); for
 CPU tensors it runs the plain PyTorch version of the same function,
 which lives here too.  Plain versions run on any device;
 ``PLAIN_CUDA_CALLS`` counts the calls they get with CUDA tensors, which
@@ -85,7 +86,8 @@ def _check(ch, cf, cd, ms, rlens, k: int,
     return B, lanes, H, R
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args,
+            route: str = "score") -> None:
     fn = build.entry_point(name)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
@@ -95,7 +97,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    LAUNCH_SHAPES[name, args[0].shape[2], args[1].shape[2]] += 1
+    LAUNCH_SHAPES[name, route, args[0].shape[2], args[1].shape[2]] += 1
 
 
 def _note_plain(name: str, t: torch.Tensor) -> None:
@@ -224,11 +226,11 @@ def rdd_moment_plain(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a, z):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def hist(ch, cf, cd, ms, rlens, k: int):
+def hist(ch, cf, cd, ms, rlens, k: int, route: str = "score"):
     """-> h_d (B, W) int32 over j - i + H, h_a (B, W) int32 over j + i,
     each summing hit multiplicity, and scal (B, 4) int32 =
     [forward hits, reverse hits, first hit row (H + 1 if none), last hit
-    row (-1 if none)]."""
+    row (-1 if none)].  `route` names the caller in LAUNCH_SHAPES."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k)
     if ch.device.type == "cpu":
         return hist_plain(ch, cf, cd, ms, rlens, k)
@@ -241,7 +243,7 @@ def hist(ch, cf, cd, ms, rlens, k: int):
     scal[:, 3] = -1
     W = h_d.shape[1]
     _launch("hist", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes, k,
-            W, h_d, h_a, scal)
+            W, h_d, h_a, scal, route=route)
     return h_d, h_a, scal
 
 

@@ -2,8 +2,9 @@
 a torch device.
 
 Validators request scores for a whole read list at once so the device
-backend can batch (read x haplotype) pairs; the numpy backend simply
-loops the oracle scorers.
+backend can batch (read x haplotype) pairs, across events too
+(engine/batching.py); the numpy backend simply loops the oracle
+scorers.
 """
 from __future__ import annotations
 
@@ -25,11 +26,17 @@ class NumpyBackend:
 
 
 def get_backend(name: str = "torch", device=None):
-    """'torch' (the fused engine on `device`, CUDA unless a device is
-    given; raises when CUDA is asked for and absent) or 'numpy'."""
+    """'torch' (the fused engine behind the cross-event batching
+    backend), 'torch-nobatch' (the fused engine, one launch per
+    request) or 'numpy'.  The torch backends run on `device`, CUDA unless
+    a device is given, and raise when CUDA is asked for and absent."""
     if name == "numpy":
         return NumpyBackend()
+    device = "cuda" if device is None else device
     if name == "torch":
+        from .batching import BatchingBackend
+        return BatchingBackend(device)
+    if name == "torch-nobatch":
         from .fused import FusedBackend
-        return FusedBackend("cuda" if device is None else device)
+        return FusedBackend(device)
     raise ValueError(f"unknown backend {name!r}")

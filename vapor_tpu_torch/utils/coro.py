@@ -9,8 +9,13 @@ stats, score batches).  Two drivers consume them:
 * ``run_pipelined`` — keep up to N task generators in flight on one
   thread.  Younger generators' device work is already launched while
   the oldest generator's finisher blocks, so the device does not idle
-  while one result comes back.  Results are emitted strictly in
-  submission order.
+  while one result comes back.  With the batching backend, the pending
+  requests of the in-flight events also coalesce into combined launches.
+  Results are emitted strictly in submission order.
+
+A finisher is any zero-argument callable: a closure over a batching
+future, or the bound ``Future.result`` of the window refiner's band-QC
+worker pool, which blocks until that worker is done.
 """
 from __future__ import annotations
 

@@ -33,8 +33,10 @@ import math
 from typing import Dict, List, Optional, Sequence
 
 from .config import DEFAULT_CONFIG, VaporConfig
+from .engine.fused import FusedBackend
 from .engine.scoring import get_backend
 from .engine.window import window_size_refine
+from .engine.window_device import DeviceWindowRefiner
 from .grammar.letters import (block_around_check, bp_to_chr_hash,
                               block_subsplot, flank_length_calculate,
                               letter_split)
@@ -61,6 +63,14 @@ class ValidatorContext:
         self.bam_in = bam_in
         self.backend = get_backend(backend, device)
         self.cfg = config
+        # the torch backends refine on their device (in the batched
+        # backend's flushes where it batches); numpy refines on the host
+        self._refiner = None
+        if isinstance(self.backend, FusedBackend):
+            self._refiner = DeviceWindowRefiner(
+                config.region_qc_cff,
+                submit=getattr(self.backend, "submit_selfstats", None),
+                device=self.backend.device)
         self.figures = figures
         # BAM ingest prefetch: decode the BGZF stream on a background
         # thread while the worklist parses / first haplotypes build
@@ -93,9 +103,8 @@ class ValidatorContext:
         return drain(self._refine_gen(seq))
 
     def _refine_gen(self, seq: str):
-        """Host window refiner, as a generator that yields nothing, so
-        validators `yield from` it where a device refiner would wait."""
-        yield from ()
+        if self._refiner is not None:
+            return (yield from self._refiner.refine_gen(seq))
         w, _ = window_size_refine(seq, self.cfg.region_qc_cff)
         return w
 

@@ -14,10 +14,17 @@ at its reported shape, with its grid's waves, and hist on the window
 refiner's self-stats row of the largest DUP alt hap), 4 end to end on
 cuda through the default backend (cross-event batching, the device
 window refiner) and through torch-nobatch, byte-equal (bed, then vcf),
-5 CPU and oracle cross-check of the default backend, 6 kernel list.  The
-last line of stdout is
+5 CPU and oracle cross-check of the default backend, 6 scale-out (6a the
+native BAM codec: an index-less copy of the bed worklist's BAM decodes
+natively, record for record as the pure-Python decoder, and the bed CLI
+on it gives phase 4's bytes; 6b the bed worklist dealt over 4 contigs
+through scatter --jobs 2, a 2-rank torch.distributed (gloo) run with
+both ranks on the card, and --shard-by-contig shards merged, each
+byte-equal to one plain run; 6c one fused_batch's rows split over two
+streams of the card, and over every visible card, bit for bit the
+one-device launch), then the kernel list.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Needs one CUDA card and nvcc; exits non-zero without them.
+Needs one CUDA card, nvcc and g++; exits non-zero without them.
 """
 from __future__ import annotations
 
@@ -28,10 +35,13 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Peak rates of one H100 SXM at the 700 W limit: HBM bytes/s (NVIDIA data
 # sheet), and 32-bit integer operations/s, 132 SMs x 64 INT32 lanes x the
@@ -422,7 +432,7 @@ def selfstats_parity(fa, events, reps: int, report) -> None:
 # ---------------------------------------------------------------------------
 
 def run_cli(mode, fa, bam, sv_input, out=None, backend="torch",
-            device="cuda"):
+            device="cuda", extra=()):
     """One CLI run; returns the output's lines without header lines (the
     bed rows, or the annotated VCF records, which vcf mode writes to
     <sv-input>.vapor)."""
@@ -430,7 +440,8 @@ def run_cli(mode, fa, bam, sv_input, out=None, backend="torch",
     args = [mode, "--sv-input", sv_input, "--reference", fa,
             "--pacbio-input", bam, "--output-path",
             os.path.join(os.path.dirname(sv_input), "figs"),
-            "--backend", backend, "--device", device, "--no-figures"]
+            "--backend", backend, "--device", device, "--no-figures",
+            *extra]
     if out:
         args += ["--output-file", out]
     rc = main(args)
@@ -487,6 +498,241 @@ def _timed_run(label, counted, *cli_args, **cli_kw):
             print(f"{label} score launches of {name} by H x R: {by}",
                   flush=True)
     return rows, wall, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: scale-out
+# ---------------------------------------------------------------------------
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def codec_phase(tmp, fa, bam, bed, events, rows, wall) -> None:
+    """6a: an index-less copy of the bed worklist's BAM goes through
+    BamReader, which must decode with the native codec, every event
+    region's records equal to the pure-Python decode, and the bed CLI on
+    it must give phase 4's rows."""
+    from vapor_tpu_torch import native
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.io.bam import BamReader
+    from vapor_tpu_torch.io.reads import _open_bam
+    d = os.path.join(tmp, "nobai")
+    os.makedirs(d)
+    plain_bam = shutil.copyfile(bam, os.path.join(d, "reads.bam"))
+    reader = _open_bam(plain_bam)
+    _require(isinstance(reader, BamReader) and reader.decoder == "native",
+             f"index-less BAM: {type(reader).__name__} decoded by "
+             f"{getattr(reader, 'decoder', '?')}; codec: "
+             f"{native.LOAD_ERROR}")
+    python = BamReader(plain_bam, native=False)
+    n_records = 0
+    for _, s, e in events:
+        region = ("chrE", max(1, s - 2000), e + 2000)
+        got = [(r.name, r.flag, r.pos0, r.mapq, r.cigar, r.seq)
+               for r in reader.fetch(*region)]
+        want = [(r.name, r.flag, r.pos0, r.mapq, r.cigar, r.seq)
+                for r in python.fetch(*region)]
+        _require(got == want, f"native and Python decodes differ on "
+                 f"{region}")
+        n_records += len(got)
+    _require(n_records > 0, "no records in the event regions")
+    got, nb_wall, launches = _timed_run(
+        "bed index-less", kernels.NAMES, "bed", fa, plain_bam, bed,
+        os.path.join(d, "out.vapor"))
+    _require(got == rows, "bed on the index-less BAM differs from phase 4")
+    print(f"phase 6a codec: native decode of the index-less BAM, "
+          f"{n_records} records in {len(events)} event regions equal the "
+          f"Python decode; bed equal to phase 4: index-less "
+          f"{nb_wall:.2f} s, {len(events) / nb_wall:.2f} events/s, "
+          f"indexed (phase 4) {wall:.2f} s, {len(events) / wall:.2f} "
+          f"events/s; launches {launches}", flush=True)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launches_in(stderr: str):
+    """Kernel launches summed over the --trace reports in stderr, and the
+    number of reports."""
+    from vapor_tpu_torch.engine import kernels
+    total = dict.fromkeys(kernels.NAMES, 0)
+    for name, n in re.findall(r"^kernel (\w+) launches=(\d+)$", stderr,
+                              re.M):
+        total[name] += int(n)
+    return total, stderr.count("--- vapor-tpu-torch trace ---")
+
+
+def _processes(cmds, label: str, timeout: float):
+    """Runs the (command, environment) pairs at once from the repo root;
+    returns their stderr texts.  Fails if any exits non-zero; kills every
+    one that is still running when this returns."""
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env,
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd, env in cmds]
+    try:
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, err in zip(procs, errs):
+        _require(p.returncode == 0, f"{label}: a process exited "
+                 f"{p.returncode}:\n{err[-3000:]}")
+    return errs
+
+
+def shards_phase(tmp, seed: int) -> None:
+    """6b: the bed worklist dealt over 4 contigs, on the card, through
+    scatter --jobs 2 (one process per contig), a 2-rank torch.distributed
+    run (gloo, both ranks on cuda:0) and --shard-by-contig shards merged;
+    each byte-equal to one plain run, each shard process's kernels
+    counted by its --trace report."""
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.orchestrate import merge_outputs
+    from vapor_tpu_torch.sim.scale import build_event_worklist
+    d = os.path.join(tmp, "contigs")
+    os.makedirs(d)
+    fa, bam, bed, events = build_event_worklist(d, seed, n_contigs=4)
+    with open(bed) as fh:
+        contigs = sorted({x.split("\t")[0] for x in fh})
+    _require(len(contigs) == 4, f"contigs {contigs}")
+    plain_out = os.path.join(d, "plain.vapor")
+    rows, wall, _ = _timed_run("4-contig bed", kernels.NAMES, "bed", fa, bam,
+                               bed, plain_out)
+    _require(len(rows) == len(events), f"{len(rows)} rows for "
+             f"{len(events)} events")
+    want = _read_bytes(plain_out)
+    cli = [sys.executable, "-m", "vapor_tpu_torch"]
+    files = ["--sv-input", bed, "--reference", fa, "--pacbio-input", bam,
+             "--device", "cuda", "--no-figures", "--trace"]
+    timings = [f"plain {wall:.2f} s, {len(events) / wall:.2f} events/s"]
+
+    out = os.path.join(d, "scatter.vapor")
+    t0 = time.perf_counter()
+    errs = _processes([([*cli, "scatter", *files, "--scatter-mode", "bed",
+                         "--jobs", "2", "--output-path",
+                         os.path.join(d, "work"), "--output-file", out],
+                        dict(os.environ))], "scatter", 900)
+    t = time.perf_counter() - t0
+    launches, reports = _launches_in(errs[0])
+    _require(_read_bytes(out) == want, "scatter differs from the plain run")
+    _require(reports == len(contigs), f"{reports} shard trace reports for "
+             f"{len(contigs)} contigs")
+    _require(all(launches.values()), f"scatter: a kernel never launched: "
+             f"{launches}")
+    timings.append(f"scatter --jobs 2 {t:.2f} s, {len(events) / t:.2f} "
+                   f"events/s, launches {launches}")
+
+    out = os.path.join(d, "dist.vapor")
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    errs = _processes([([*cli, "bed", *files, "--output-path",
+                         os.path.join(d, f"figs{rank}"), "--output-file",
+                         out],
+                        dict(base, RANK=str(rank), LOCAL_RANK=str(rank),
+                             WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                             MASTER_PORT=str(port)))
+                       for rank in range(2)], "2-rank run", 900)
+    t = time.perf_counter() - t0
+    launches, reports = _launches_in("".join(errs))
+    _require(_read_bytes(out) == want, "the 2-rank run differs from the "
+             "plain run")
+    keys = []
+    for rank in range(2):
+        with open(f"{out}.shard{rank}") as fh:
+            keys.append({tuple(x.split("\t")[:3]) for x in fh
+                         if not x.startswith("#")})
+    _require(keys[0] and keys[1] and not keys[0] & keys[1],
+             f"rank shards of {len(keys[0])} and {len(keys[1])} rows, "
+             f"{len(keys[0] & keys[1])} in both")
+    _require(reports == 2 and all(launches.values()),
+             f"2-rank run: {reports} trace reports, launches {launches}")
+    timings.append(f"2 ranks (gloo, both on cuda:0) {t:.2f} s, "
+                   f"{len(events) / t:.2f} events/s, shards of "
+                   f"{len(keys[0])} and {len(keys[1])} events, launches "
+                   f"{launches}")
+
+    outs, t = [], 0.0
+    for index in range(2):
+        outs.append(os.path.join(d, f"by_contig{index}.vapor"))
+        got, wall_i, _ = _timed_run(
+            f"--shard-by-contig shard {index}", ("hist",), "bed", fa, bam,
+            bed, outs[-1], extra=["--shard-by-contig", "--num-shards", "2",
+                                  "--shard-index", str(index)])
+        _require(got, f"--shard-by-contig shard {index} is empty")
+        t += wall_i
+    merged = os.path.join(d, "by_contig.vapor")
+    merge_outputs(outs, merged)
+    _require(_read_bytes(merged) == want, "--shard-by-contig shards merged "
+             "differ from the plain run")
+    timings.append(f"--shard-by-contig 2 shards in turn {t:.2f} s, "
+                   f"{len(events) / t:.2f} events/s")
+    print(f"phase 6b shards: {len(events)} events on {len(contigs)} "
+          f"contigs, each output equal to the plain run: "
+          + "; ".join(timings), flush=True)
+
+
+def mesh_phase(fa, bam, events, reps: int) -> None:
+    """6c: one fused_batch of the DUP 6000 rdd rows (hap_index, as the
+    batching backend uploads them) and one of the DEL 9500 del rows,
+    split by maybe_mesh_rows over two streams of cuda:0 and over every
+    visible card: bit for bit the one-device launch, every kernel of the
+    mode launched once per part."""
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
+                                              fused_batch_local)
+    from vapor_tpu_torch.parallel.mesh import maybe_mesh_rows, mesh_devices
+    dev = torch.device("cuda", 0)
+    mode_kernels = {"rdd": ("hist", "kept_hist", "rdd_moment"),
+                    "del": ("hist", "left_hist", "moment2")}
+    for svtype, body, mode in (("DUP", DUP_SIZES[-1], "rdd"),
+                               ("DEL", SIZES[-1], "del")):
+        ev = next(x for x in events if x[0] == svtype and
+                  x[2] - x[1] == body)
+        haps, fw, rlens, ms = _event_rows(fa, bam, ev, mode)
+        idx = None
+        if mode == "rdd":
+            haps = haps[:1]
+            idx = torch.zeros(fw.shape[0], dtype=torch.int64, device=dev)
+        h, r, rl, m, k_idx = batch_from_numpy(haps, fw, rlens, ms, 0, dev)
+        H, R = h.shape[1], r.shape[1]
+        one = fused_batch_local(h, r, rl, m, k_idx, mode, idx)[2]
+        kernels.reset_counts()
+        split = maybe_mesh_rows(h, r, rl, m, k_idx, H, R, mode,
+                                hap_index=idx, devices=[dev, dev])
+        torch.cuda.synchronize()
+        launched = {n: kernels.LAUNCHES[n] for n in mode_kernels[mode]}
+        _require(split is not None and torch.equal(split, one),
+                 f"{mode} rows split over two streams differ from one "
+                 f"launch")
+        _require(all(n == 2 for n in launched.values()),
+                 f"{mode} split: launches {launched}, want 2 each")
+        cards = mesh_devices(dev)
+        every = fused_batch(h, r, rl, m, k_idx, H, R, mode,
+                            hap_index=idx)[2]
+        _require(torch.equal(every, one), f"{mode} rows over every visible "
+                 f"card ({len(cards)}) differ from one launch")
+        ms_one = _time_ms(lambda: fused_batch_local(h, r, rl, m, k_idx,
+                                                    mode, idx), reps)
+        ms_two = _time_ms(lambda: maybe_mesh_rows(
+            h, r, rl, m, k_idx, H, R, mode, hap_index=idx,
+            devices=[dev, dev]), reps)
+        alone = " (one card: the one-device launch)" if len(cards) < 2 \
+            else ""
+        print(f"phase 6c rows across devices, {mode} B={r.shape[0]} H={H} "
+              f"R={R}: two streams of cuda:0 equal one launch bit for bit, "
+              f"launches {launched}; over the {len(cards)} visible card(s) "
+              f"equal too{alone}; one launch {ms_one:.3f} ms, two streams "
+              f"{ms_two:.3f} ms", flush=True)
 
 
 def main() -> int:
@@ -629,6 +875,13 @@ def main() -> int:
               f" smallest bed events and its annotated VCF for the 3 "
               f"smallest vcf events equal the CPU and numpy-oracle runs "
               f"byte for byte", flush=True)
+
+        t0 = time.perf_counter()
+        codec_phase(tmp, fa, bam, bed, events, rows, wall)
+        shards_phase(tmp, args.seed)
+        mesh_phase(fa, bam, events, args.reps)
+        print(f"phase 6 scale-out: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -20,7 +20,14 @@ unbatched one):
    but calls of two threads interleave on one stack, so their times
    there are rough;
 4. a run with wall-clock timers around the stages, summed by thread
-   (main and the band-QC pool), without the profiler's overhead.
+   (main and the band-QC pool), without the profiler's overhead;
+5. the read-gather split: a run with a fresh BAM reader (no inflated
+   block cached from the runs before) and wall-clock timers around
+   collect_event_reads and, inside it, BGZF inflate
+   (IndexedBam._inflate_at), record parse (_parse_record) and
+   clip_read_to_window; the rest of collect_event_reads is the chunk
+   scan's own Python (buffer joins, offsets) and subsampling.  The
+   timers wrap the functions here, not in the package.
 
 Prints one JSON object.
 
@@ -72,9 +79,10 @@ def _thread_role(name: str) -> str:
     return re.sub(r"_\d+$", "", name)
 
 
-def _timers():
+def _timers(stages=None):
     """Wraps the stages' functions with wall-clock timers summed by
-    (stage, thread); returns (totals, calls, restore)."""
+    (stage, thread); returns (totals, calls, restore).  `stages`, a list
+    of (owner, attribute, label), replaces the default stages."""
     import torch
     from vapor_tpu_torch import validators
     from vapor_tpu_torch.engine import batching, fused, window_device
@@ -96,6 +104,14 @@ def _timers():
         setattr(owner, attr, timed)
         undo.append((owner, attr, fn))
 
+    def restore():
+        for owner, attr, fn in undo:
+            setattr(owner, attr, fn)
+
+    if stages is not None:
+        for stage in stages:
+            wrap(*stage)
+        return totals, calls, restore
     wrap(validators, "collect_event_reads", "read gather")
     wrap(window_device.DeviceWindowRefiner, "_stats_async",
          "window refiner, device step submit")
@@ -108,11 +124,18 @@ def _timers():
     wrap(fused.FusedStats, "__init__",
          "rows to host, unbatched (waits for the card)")
     wrap(Future, "result", "wait for the band QC")
-
-    def restore():
-        for owner, attr, fn in undo:
-            setattr(owner, attr, fn)
     return totals, calls, restore
+
+
+def _gather_stages():
+    """(owner, attribute, label) of collect_event_reads and its parts,
+    for _timers."""
+    from vapor_tpu_torch import validators
+    from vapor_tpu_torch.io import bai, reads
+    return [(validators, "collect_event_reads", "read gather"),
+            (bai.IndexedBam, "_inflate_at", "inflate"),
+            (bai, "_parse_record", "record parse"),
+            (reads, "clip_read_to_window", "clip_read_to_window")]
 
 
 def _device_us(evt) -> float:
@@ -197,6 +220,25 @@ def main() -> int:
         finally:
             restore()
 
+        from vapor_tpu_torch.io.reads import _open_bam
+        _open_bam.cache_clear()
+        g_totals, g_calls, restore = _timers(_gather_stages())
+        try:
+            t0 = time.perf_counter()
+            run("gather")
+            wall_gather = time.perf_counter() - t0
+        finally:
+            restore()
+        split = {f"{label} [{role}]": {"s": t,
+                                       "calls": g_calls[label, role]}
+                 for (label, role), t in sorted(g_totals.items())}
+        # the parts on the threads that gather reads (the reader's first
+        # inflate may run on the context's warm-up thread)
+        roles = {role for label, role in g_totals if label == "read gather"}
+        split["rest of read gather"] = {"s": sum(
+            t * (1 if label == "read gather" else -1)
+            for (label, role), t in g_totals.items() if role in roles)}
+
     out = {
         "backend": args.backend,
         "card": torch.cuda.get_device_name(0),
@@ -221,6 +263,8 @@ def main() -> int:
         "stage_wall_s_by_thread": {
             f"{label} [{role}]": {"s": t, "calls": calls[label, role]}
             for (label, role), t in sorted(totals.items())},
+        "gather_split_wall_s": wall_gather,
+        "read_gather_split_s": split,
     }
     print(json.dumps(out, indent=1))
     return 0

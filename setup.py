@@ -15,7 +15,8 @@ setup(
                                     "vapor_tpu_torch", "vapor_tpu_torch.*"]),
     package_data={"vapor_tpu": ["native/*.cpp",
                                 "engine/autotune_tables/*.json"],
-                  "vapor_tpu_torch": ["engine/kernels/csrc/*.cu",
+                  "vapor_tpu_torch": ["native/*.cpp",
+                                      "engine/kernels/csrc/*.cu",
                                       "engine/kernels/csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[

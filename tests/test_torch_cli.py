@@ -168,14 +168,9 @@ def test_unported_modes_and_missing_card_exit_2(tmp_path, capsys):
     case = gc.build_bed_case(d, "DEL", 6000, 6300, 11, True)
     out = os.path.join(d, "x.vapor")
     base = _args("bed", case["bed"], case, d, "--output-file", out)
-    for args in (["scatter", *base[1:], "--device", "cpu"],
-                 [*base, "--device", "cpu", "--trace"],
-                 [*base, "--device", "cpu", "--shard-by-contig"]):
-        assert main(args) == 2
-        assert "not ported yet" in capsys.readouterr().err
     if not torch.cuda.is_available():
         # cuda is the default device: no card means no run, never the CPU
-        for mode in ("bed", "vcf", "svelter"):
+        for mode in ("bed", "vcf", "svelter", "scatter"):
             assert main([mode, *base[1:], "--no-figures"]) == 2
             assert "CUDA" in capsys.readouterr().err
         assert not os.path.exists(out)

@@ -1,6 +1,7 @@
 """vapor_tpu_torch's CUDA kernels against their plain PyTorch versions
 (the window refiner's self-stats rows through hist included), the fused
-engine on the card against the same engine on the CPU, and the batching
+engine on the card against the same engine on the CPU, its rows split
+over two streams of the card against one launch, and the batching
 backend on the card against the unbatched one.
 
 Needs a CUDA card and nvcc: each test skips without one.  Run on the
@@ -13,8 +14,9 @@ import torch
 from vapor_tpu_torch.engine import kernels
 from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD
 from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
-                                          intercept_z, kept_table,
-                                          row_codes)
+                                          fused_batch_local, intercept_z,
+                                          kept_table, row_codes)
+from vapor_tpu_torch.parallel.mesh import maybe_mesh_rows
 from vapor_tpu_torch.sim.scale import repeat_rows
 from torch_rows import random_rows
 
@@ -150,6 +152,32 @@ def test_fused_batch_card_equals_cpu(cuda, scorer):
                              H=1024, R=1536, scorer=scorer)
         for g, w in zip(on_card, on_cpu):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("hap_index", [False, True])
+@pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])
+def test_row_split_on_two_streams_is_bitwise(cuda, scorer, hap_index):
+    """maybe_mesh_rows over [cuda, cuda]: two parts, each on its own
+    stream of the one card, give the one-device launch's packed rows bit
+    for bit (and the CPU's); every kernel of the mode launches once per
+    part."""
+    haps, reads, rlens, ms = _batch(1536, 1024, 20, seed=9)
+    h, r, rl, m, k_idx = batch_from_numpy(haps, reads, rlens, ms, 1, cuda)
+    idx = None
+    if hap_index:     # rows 0, 7, 14 share hap 0, and so on
+        idx = torch.arange(20, device=cuda) % 7
+        h = h[:7].contiguous()
+    one = fused_batch_local(h, r, rl, m, k_idx, scorer, idx)[2]
+    before = dict(kernels.LAUNCHES)
+    got = maybe_mesh_rows(h, r, rl, m, k_idx, 1536, 1024, scorer,
+                          hap_index=idx, devices=[cuda, cuda])
+    launched = {n: kernels.LAUNCHES[n] - before[n] for n in kernels.NAMES}
+    assert got is not None and torch.equal(got, one)
+    cpu = fused_batch_local(*(x.cpu() for x in (h, r, rl, m)), k_idx,
+                            scorer, None if idx is None else idx.cpu())[2]
+    assert torch.equal(got.cpu(), cpu)
+    assert launched["hist"] == 2
+    assert all(n in (0, 2) for n in launched.values())
 
 
 def _self_rows(H, B, seed):

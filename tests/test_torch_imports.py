@@ -14,6 +14,7 @@ FORBIDDEN = ("jax", "jaxlib", "vapor_tpu")
 
 def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "scripts", "profile_torch_bed.py")
     for base, _, files in os.walk(os.path.join(ROOT, "vapor_tpu_torch")):
         for f in files:
             if f.endswith(".py"):
@@ -35,7 +36,13 @@ def test_no_file_imports_jax_or_vapor_tpu():
     assert len(files) > 20
     names = {os.path.relpath(p, ROOT) for p in files}
     assert {"vapor_tpu_torch/engine/batching.py",
-            "vapor_tpu_torch/engine/window_device.py"} <= names
+            "vapor_tpu_torch/engine/window_device.py",
+            "vapor_tpu_torch/orchestrate.py", "vapor_tpu_torch/io/tabix.py",
+            "vapor_tpu_torch/native/__init__.py",
+            "vapor_tpu_torch/parallel/mesh.py",
+            "vapor_tpu_torch/parallel/multihost.py",
+            "vapor_tpu_torch/utils/trace.py",
+            "scripts/profile_torch_bed.py"} <= names
     bad = [(os.path.relpath(p, ROOT), name) for p in files
            for name in _imported(p)
            if name.split(".")[0] in FORBIDDEN]
@@ -46,7 +53,11 @@ def test_import_loads_neither():
     code = ("import sys, vapor_tpu_torch.cli, "
             "vapor_tpu_torch.engine.fused, vapor_tpu_torch.sim.scale, "
             "vapor_tpu_torch.engine.batching, "
-            "vapor_tpu_torch.engine.window_device; "
+            "vapor_tpu_torch.engine.window_device, "
+            "vapor_tpu_torch.orchestrate, vapor_tpu_torch.io.tabix, "
+            "vapor_tpu_torch.native, vapor_tpu_torch.parallel.mesh, "
+            "vapor_tpu_torch.parallel.multihost, "
+            "vapor_tpu_torch.utils.trace; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'vapor_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

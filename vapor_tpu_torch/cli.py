@@ -1,11 +1,19 @@
 """Command-line interface: ``python -m vapor_tpu_torch {bed,vcf,ins,
-svelter,pdf} ...``.
+svelter,pdf,scatter} ...``.
 
 The argument surface is vapor-tpu's (reference ``vapor`` script,
 vapor:287-296, plus the framework flags), with ``--device {cuda,cpu}``
-and ``--backend {torch,torch-nobatch,numpy}``.  ``scatter``,
-``--shard-by-contig`` and ``--trace`` are not ported and exit with code
-2; ``--num-shards`` splits a worklist round robin.
+and ``--backend {torch,torch-nobatch,numpy}``.  Scale-out:
+
+* ``scatter`` splits the worklist by contig and runs one
+  ``python -m vapor_tpu_torch`` process per contig (``--jobs`` at a
+  time, on the same backend and device), then merges (orchestrate.py);
+* under torchrun (WORLD_SIZE > 1) each rank joins a gloo process group,
+  scores its contig-granular shard on ``cuda:{LOCAL_RANK % cards}``,
+  writes ``<output>.shard<rank>`` and rank 0 writes the merged output
+  (parallel/multihost.py);
+* ``--shard-index/--num-shards`` take one shard by hand: round robin, or
+  the multi-process assignment with ``--shard-by-contig``.
 
 Flow quirks preserved from the reference:
 * DEL/INV rows are keyed ``chrom:start:end:TYPE`` and scored events
@@ -35,8 +43,6 @@ from .utils.coro import run_pipelined
 from .validators import ValidatorContext
 from .writers.tsv import append_result_row, initiate_output
 from .writers.vcf import annotate_vcf, invert_record_keys
-
-PORTED_MODES = ("bed", "vcf", "ins", "svelter", "pdf")
 
 
 def _path_modify(path: str) -> str:
@@ -76,13 +82,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-figures", action="store_true",
                         help="skip per-event recurrence-plot PNGs")
     parser.add_argument("--trace", action="store_true",
-                        help="per-stage timing to stderr (not ported yet)")
+                        help="per-stage timing and kernel launches to "
+                             "stderr")
     parser.add_argument("--shard-index", type=int, default=0,
-                        help="worklist shard to process")
+                        help="worklist shard to process (multi-host)")
     parser.add_argument("--num-shards", type=int, default=1,
-                        help="total worklist shards (round robin)")
+                        help="total worklist shards (multi-host)")
     parser.add_argument("--shard-by-contig", action="store_true",
-                        help="contig-granular shards (not ported yet)")
+                        help="use the contig-granular balanced shard "
+                             "assignment of multi-process runs for manual "
+                             "--shard-index runs")
     parser.add_argument("--resume", action="store_true",
                         help="skip events already present in the output "
                              "file (preemption-safe restart)")
@@ -112,11 +121,55 @@ def _sample_name(path: str) -> str:
     return ".".join(path.split("/")[-1].split(".")[:-1])
 
 
-def _shard(items: List, index: int, total: int) -> List:
-    """Round-robin worklist shard `index` of `total`."""
+def _shard(items: List, index: int, total: int,
+           dist: bool = False, owner=None) -> List:
+    """Worklist shard: manual --shard-index keeps plain round robin;
+    multi-process runs (and --shard-by-contig) go contig-granular
+    (parallel.multihost) so per-process BAM regions stay disjoint.
+    ``owner`` shares one assignment across several per-type calls (vcf
+    mode: it must come from the combined event list, or the same contig
+    could be owned by different shards for different SV types)."""
     if total <= 1:
         return list(items)
+    if dist:
+        from .parallel.multihost import shard_worklist
+        return shard_worklist(items, index, total, owner=owner)
     return [x for i, x in enumerate(items) if i % total == index]
+
+
+def _dist_out(out_name: str, dist) -> str:
+    """Per-process output file in a multi-process run."""
+    return out_name + (f".shard{dist[0]}" if dist else "")
+
+
+def _dist_finalize(local_out: str, final_out: str, dist) -> None:
+    """Gathers every process's result rows and writes the merged output
+    on rank 0: the in-job replacement for the WDL ConcatVaPoR file merge
+    (TasksBenchmark.wdl:249-317).  The gather doubles as the end-of-run
+    barrier."""
+    from .orchestrate import _version_key
+    from .parallel.multihost import allgather_rows
+    header = None
+    rows: List[List[str]] = []
+    if os.path.exists(local_out):
+        with open(local_out) as fin:
+            for line in fin:
+                if line.startswith("#"):
+                    header = header or line
+                    continue
+                if line.strip():
+                    rows.append(line.rstrip("\n").split("\t"))
+    merged = allgather_rows(rows)
+    if dist[0] == 0:
+        merged.sort(key=lambda r: (
+            _version_key(r[0]),
+            int(r[1]) if len(r) > 1 and r[1].lstrip("-").isdigit()
+            else 0))
+        with open(final_out, "w") as fo:
+            if header:
+                fo.write(header)
+            for r in merged:
+                fo.write("\t".join(r) + "\n")
 
 
 def _resume_keys(out_name: str):
@@ -137,7 +190,9 @@ def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
             fig_ext: str = "png", bed4: bool = False) -> None:
     out_path = _path_modify(args.output_path)
     os.makedirs(out_path, exist_ok=True)
-    out_name = args.output_file
+    dist = args.dist
+    final_out = args.output_file
+    out_name = _dist_out(final_out, dist)
     sample = _sample_name(args.sv_input)
     if bed4:
         events = bed4_info_readin(args.sv_input)
@@ -154,7 +209,8 @@ def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
                       and x[2] - x[1] >= args.size_cff]
     else:
         events = bed_info_readin(args.sv_input)
-    events = _shard(events, args.shard_index, args.num_shards)
+    events = _shard(events, args.shard_index, args.num_shards,
+                    dist=bool(dist) or args.shard_by_contig)
     done = _resume_keys(out_name) if args.resume else set()
     if not (args.resume and os.path.exists(out_name)):
         initiate_output(out_name)
@@ -213,6 +269,8 @@ def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
         print(result)
 
     run_pipelined(tasks, emit, args.pipeline)
+    if dist:
+        _dist_finalize(out_name, final_out, dist)
 
 
 def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
@@ -220,7 +278,9 @@ def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
     os.makedirs(out_path, exist_ok=True)
     sample = _sample_name(args.sv_input)
     vcf_list, rec_hash = vcf_list_readin(args.sv_input)
-    out_name = args.sv_input + ".vapor"
+    dist = args.dist
+    final_out = args.sv_input + ".vapor"
+    out_name = _dist_out(final_out, dist)
     initiate_output(out_name)
 
     def emit(key: Optional[str], scores) -> None:
@@ -232,10 +292,20 @@ def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
         return out_path + sample + "." + kind + "." + \
             key.replace(":", "__") + ".png"
 
+    # one contig->shard assignment for ALL SV types: computed from the
+    # combined event list so the same contig is never owned by
+    # different shards for different types (per-process BAM disjointness)
+    dist_mode = bool(dist) or args.shard_by_contig
+    owner = None
+    if dist_mode and args.num_shards > 1:
+        from .parallel.multihost import balanced_owner
+        owner = balanced_owner(
+            [y for t in vcf_list for y in vcf_list[t] if "NA" not in y],
+            args.num_shards)
     tasks = []
     for sv_type in list(vcf_list.keys()):
         for y in _shard(vcf_list[sv_type], args.shard_index,
-                        args.num_shards):
+                        args.num_shards, dist=dist_mode, owner=owner):
             if "NA" in y:
                 continue
 
@@ -299,6 +369,10 @@ def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
             tasks.append(task)
 
     run_pipelined(tasks, emit, args.pipeline)
+    if dist:
+        _dist_finalize(out_name, final_out, dist)
+        if dist[0] != 0:
+            return
     annotate_vcf(args.sv_input, invert_record_keys(rec_hash))
 
 
@@ -317,10 +391,12 @@ def run_ins(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
             return ""
         return seq_fa.fetch(name, 1, seq_fa.contig_length(name))
 
-    out_name = prefix + ".vapor"
+    dist = args.dist
+    final_out = prefix + ".vapor"
+    out_name = _dist_out(final_out, dist)
     initiate_output(out_name)
     records = _shard(melt_records(prefix, fetch_entry), args.shard_index,
-                     args.num_shards)
+                     args.num_shards, dist=bool(dist) or args.shard_by_contig)
 
     def task(key_event, ins_seq, polarity):
         return key_event, (yield from ctx.validate_ins_gen(
@@ -333,19 +409,23 @@ def run_ins(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
 
     run_pipelined([functools.partial(task, *rec) for rec in records],
                   emit, args.pipeline)
+    if dist:
+        _dist_finalize(out_name, final_out, dist)
 
 
 def run_svelter(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
     out_path = _path_modify(args.output_path)
     os.makedirs(out_path, exist_ok=True)
-    out_name = args.output_file
+    dist = args.dist
+    out_name = _dist_out(args.output_file, dist)
     sample = _sample_name(args.sv_input)
     svelter_hash = svelter_readin(args.sv_input)
     tasks = []
     for ref_struct in list(svelter_hash.keys()):
         for alt_struct in list(svelter_hash[ref_struct].keys()):
             for bps in _shard(svelter_hash[ref_struct][alt_struct],
-                              args.shard_index, args.num_shards):
+                              args.shard_index, args.num_shards,
+                              dist=bool(dist) or args.shard_by_contig):
 
                 def task(ref_struct=ref_struct, alt_struct=alt_struct,
                          bps=bps):
@@ -362,18 +442,30 @@ def run_svelter(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
         append_result_row(out_name, organize_result(key_event, scores))
 
     run_pipelined(tasks, emit, args.pipeline)
+    if dist:
+        _dist_finalize(out_name, args.output_file, dist)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    unported = [flag for flag, on in (
-        (args.mode, args.mode not in PORTED_MODES),
-        ("--shard-by-contig", args.shard_by_contig),
-        ("--trace", args.trace)) if on]
-    if unported:
-        print(f"vapor-tpu-torch: {', '.join(unported)}: not ported yet",
-              file=sys.stderr)
-        return 2
+    # multi-process execution: under torchrun (WORLD_SIZE > 1) join the
+    # gloo process group, take a contig-granular worklist shard on this
+    # rank's card, and merge result rows by an allgather at the end (the
+    # WDL scatter + ConcatVaPoR pattern, in-job).  No-op otherwise.
+    from .parallel.multihost import finalize, initialize, rank_device
+    pid, nproc = initialize()
+    args.dist = None
+    if nproc > 1:
+        args.shard_index, args.num_shards = pid, nproc
+        args.dist = (pid, nproc)
+        args.device = rank_device(args.device)
+    try:
+        return _run(args)
+    finally:
+        finalize()
+
+
+def _run(args) -> int:
     num_reads_cff = int(args.PB_supp) if args.PB_supp else \
         DEFAULT_CONFIG.num_reads_cff
     if not os.path.exists(args.reference):
@@ -384,6 +476,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"vapor-tpu-torch: SV input not found: {args.sv_input}",
               file=sys.stderr)
         return 2
+    if args.mode == "scatter":
+        from .engine.scoring import get_backend
+        from .orchestrate import run_scatter
+        try:    # the shards' backend and device, checked here first
+            get_backend(args.backend, args.device)
+        except RuntimeError as exc:      # CUDA asked for and absent
+            print(f"vapor-tpu-torch: {exc}", file=sys.stderr)
+            return 2
+        run_scatter(args.scatter_mode, args.sv_input, args.reference,
+                    args.pacbio_input, args.output_path,
+                    args.output_file, jobs=args.jobs,
+                    backend=args.backend, device=args.device,
+                    extra_args=[flag for flag, on in (
+                        ("--no-figures", args.no_figures),
+                        ("--trace", args.trace)) if on])
+        return 0
     try:
         ctx = ValidatorContext(args.reference, args.pacbio_input,
                                backend=args.backend, device=args.device,
@@ -391,6 +499,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     except RuntimeError as exc:      # CUDA asked for and absent
         print(f"vapor-tpu-torch: {exc}", file=sys.stderr)
         return 2
+    if args.trace:
+        from .utils.trace import enable_trace
+        enable_trace(ctx)
     if args.mode == "bed":
         run_bed(args, ctx, num_reads_cff, fig_ext=args.figure_format)
     elif args.mode == "pdf":

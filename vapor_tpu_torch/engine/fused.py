@@ -31,6 +31,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import maybe_mesh_rows
 from . import kernels, oracle
 from .constants import HAP_PAD, READ_PAD, bucket_for
 
@@ -288,16 +289,33 @@ def fused_batch(haps, reads, rlens, ms, k_idx: int, H: int, R: int,
                 scorer: str, hap_index=None):
     """Batched per-(read, hap) statistics: the production scoring entry.
 
-    Rows go through in groups of min(8, B), the JAX engine's row
-    grouping: pad rows carry HAP_PAD / READ_PAD codes, rlen = 1 and m = 0,
-    so they hold no eligible cell (the kernels skip them outright), and
-    are cut off again before returning.  With hap_index (B,) int64, haps
-    holds (U, H) unique rows and row b scores haps[hap_index[b]] (the
-    batching backend's deduplicated upload; the per-row result does not
-    change).  -> (h_d, h_a, packed)."""
+    With hap_index (B,) int64, haps holds (U, H) unique rows and row b
+    scores haps[hap_index[b]] (the batching backend's deduplicated
+    upload; the per-row result does not change).  When several cards
+    are visible the rows split over them (parallel.mesh.maybe_mesh_rows,
+    the histograms are then not returned: no scoring path reads them);
+    on one device this is fused_batch_local.  Per-row math is
+    integer-exact, so the packed rows are bit-identical either way.
+    -> (h_d, h_a, packed)."""
     if tuple(haps.shape[1:]) != (H,) or tuple(reads.shape[1:]) != (R,):
         raise ValueError(f"want (B, {H}) haps and (B, {R}) reads, got "
                          f"{tuple(haps.shape)} and {tuple(reads.shape)}")
+    packed = maybe_mesh_rows(haps, reads, rlens, ms, k_idx, H, R, scorer,
+                             hap_index=hap_index)
+    if packed is not None:
+        return None, None, packed
+    return fused_batch_local(haps, reads, rlens, ms, k_idx, scorer,
+                             hap_index)
+
+
+def fused_batch_local(haps, reads, rlens, ms, k_idx: int, scorer: str,
+                      hap_index=None):
+    """fused_batch on the rows' own device, in one launch per kernel.
+
+    Rows go through in groups of min(8, B), the JAX engine's row
+    grouping: pad rows carry HAP_PAD / READ_PAD codes, rlen = 1 and m = 0,
+    so they hold no eligible cell (the kernels skip them outright), and
+    are cut off again before returning.  -> (h_d, h_a, packed)."""
     B = reads.shape[0]
     pad = (-B) % min(8, B)
     if pad:

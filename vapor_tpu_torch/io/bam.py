@@ -12,8 +12,11 @@ reference-consuming CIGAR length — in file order, which for a sorted BAM
 is exactly the order ``samtools view`` emits.
 
 The read-gather layer (io/reads.py) prefers the ``.bai``-driven random
--access path (io/bai.py, ``IndexedBam``) when an index is present; the
-pure-Python whole-file scan below serves index-less files.
+-access path (io/bai.py, ``IndexedBam``) when an index is present.
+Index-less files go through ``BamReader``, which inflates and queries
+with the C++ codec (native/bamcodec.cpp, built at first use) and
+decodes in pure Python when the codec is unavailable; the pure-Python
+decode is also the differential baseline of the codec's tests.
 """
 from __future__ import annotations
 
@@ -94,11 +97,26 @@ def _decompress_bgzf(path: str) -> bytes:
 
 
 class BamReader:
-    """Whole-file BAM decoder with region iteration (pure-Python BGZF)."""
+    """Whole-file BAM decoder with region iteration.
 
-    def __init__(self, path: str):
+    Inflates and queries with the native codec (vapor_tpu_torch/native)
+    unless it is unavailable or ``native`` is False, and with the
+    pure-Python decoder otherwise; ``decoder`` says which one it used:
+    "native" or "python"."""
+
+    def __init__(self, path: str, native: bool = True):
         self.path = path
-        data = _decompress_bgzf(path)
+        self._native = None
+        data = None
+        if native:
+            from .. import native as native_mod
+            with open(path, "rb") as fh:
+                data = native_mod.bgzf_decompress(fh.read())
+            if data is not None:
+                self._native = native_mod
+        if data is None:
+            data = _decompress_bgzf(path)
+        self.decoder = "python" if self._native is None else "native"
         if data[:4] != BAM_MAGIC:
             raise ValueError(f"{path}: not a BAM file")
         l_text = struct.unpack_from("<i", data, 4)[0]
@@ -134,6 +152,16 @@ class BamReader:
         if rid is None:
             return
         beg0, end0 = int(start1) - 1, int(end1)
+        if self._native is not None:
+            text = self._native.bam_query(
+                self._data, self._records_start, rid, beg0, end0)
+            if text is not None:
+                for line in text.splitlines():
+                    name, flag, pos0, mapq, cigar, seq = line.split("\t")
+                    yield BamRecord(name=name, flag=int(flag), ref_id=rid,
+                                    pos0=int(pos0), mapq=int(mapq),
+                                    cigar=cigar, seq=seq, qual=b"")
+                return
         for rec in self:
             if rec.ref_id != rid:
                 continue

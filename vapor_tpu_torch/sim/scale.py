@@ -1,7 +1,9 @@
-"""Synthetic worklists: one contig, SV calls, noisy long reads.
+"""Synthetic worklists: SV calls and noisy long reads on one contig or a
+few.
 
 ``build_event_worklist`` writes a bed worklist of DEL, INV and tandem-DUP
-calls; ``build_vcf_worklist`` a VCF of the duplication-bearing events
+calls, on one contig or dealt round robin over several (the scale-out
+paths' worklist); ``build_vcf_worklist`` a VCF of the duplication-bearing events
 that the vcf subcommand scores with the redefine-diagonal scorer
 (DISDUP, DUP_INV and a complex ``Other=`` event with a duplicated
 block).  ``repeat_rows`` makes engine rows (no files) whose haplotypes
@@ -118,53 +120,68 @@ def _span_reads(ref, donor, anchor: int, read_len: int,
     return out
 
 
-def _write(tmpdir: str, ref: np.ndarray, reads) -> Tuple[str, str]:
-    """Writes ref.fa (+ .fai) and a sorted, indexed reads.bam."""
-    reads = sorted(reads, key=lambda x: x[0])
-    contig = "chrE"
-    records = [BamRecord(name=f"r{i}", flag=0, ref_id=0, pos0=p, mapq=60,
+def contig_name(c: int) -> str:
+    """Name of the c-th synthetic contig: chrE, chrF, ... (in version
+    order, the order of the merged scale-out outputs)."""
+    return "chr" + chr(ord("E") + c)
+
+
+def _write(tmpdir: str, refs: List[np.ndarray], reads) -> Tuple[str, str]:
+    """Writes ref.fa (+ .fai) with contig c holding refs[c], and a
+    sorted, indexed reads.bam of reads (contig index, pos0, codes,
+    CIGAR)."""
+    reads = sorted(reads, key=lambda x: x[:2])
+    records = [BamRecord(name=f"r{i}", flag=0, ref_id=c, pos0=p, mapq=60,
                          cigar=cigar, seq=BASES[seq].tobytes().decode(),
                          qual=b"")
-               for i, (p, seq, cigar) in enumerate(reads)]
+               for i, (c, p, seq, cigar) in enumerate(reads)]
     fa = os.path.join(tmpdir, "ref.fa")
     bam = os.path.join(tmpdir, "reads.bam")
-    write_fasta(fa, {contig: BASES[ref].tobytes().decode()})
-    write_bam(bam, [(contig, ref.size)], records)
+    write_fasta(fa, {contig_name(c): BASES[ref].tobytes().decode()
+                     for c, ref in enumerate(refs)})
+    write_bam(bam, [(contig_name(c), ref.size) for c, ref in enumerate(refs)],
+              records)
     write_bai(bam)
     return fa, bam
 
 
-def build_event_worklist(tmpdir: str, seed: int):
+def build_event_worklist(tmpdir: str, seed: int, n_contigs: int = 1):
     """Writes ref.fa (+ .fai), reads.bam (+ .bai) and svs.bed under
-    tmpdir.  Returns (fasta, bam, bed, events) with events a list of
-    (svtype, start0, end0).  A tandem DUP's alt haplotype is
+    tmpdir: the event_layout() events, event i on contig i % n_contigs
+    (contig_name), the bed sorted by contig and position.  Returns
+    (fasta, bam, bed, events) with events a list of (svtype, start0,
+    end0) in the bed's row order.  A tandem DUP's alt haplotype is
     2 x body + 2 x flank, and its reads run through s + 2 (e - s) +
     flank: at the largest of DUP_BODIES (6000) both fit the largest
     bucket, 16384."""
     rng = np.random.default_rng(seed)
     layout = event_layout()
+    home = [i % n_contigs for i in range(len(layout))]
     # a DUP's reads reach one body further right: so does its gap
-    genome_len = sum(body * (2 if t == "DUP" else 1) + GAP
-                     for t, body in layout) + GAP
-    ref = rng.integers(0, 4, genome_len).astype(np.uint8)
-    reads, events, pos = [], [], GAP
-    for svtype, body in layout:
-        s0, e0 = pos, pos + body
-        pos = e0 + GAP + (body if svtype == "DUP" else 0)
+    genome_lens = [GAP] * n_contigs
+    for (t, body), c in zip(layout, home):
+        genome_lens[c] += body * (2 if t == "DUP" else 1) + GAP
+    refs = [rng.integers(0, 4, n).astype(np.uint8) for n in genome_lens]
+    reads, rows, pos = [], [], [GAP] * n_contigs
+    for i, ((svtype, body), c) in enumerate(zip(layout, home)):
+        s0, e0 = pos[c], pos[c] + body
+        pos[c] = e0 + GAP + (body if svtype == "DUP" else 0)
         # whole-event mode needs reads through the event's right flank
         # (e0 + flank, for a DUP s0 + 2 body + flank); junction mode only
         # around s0
         span = (2 * body if svtype == "DUP" else body) if body < 10000 \
             else 0
-        reads += _span_reads(ref, _donor(ref, svtype, s0, e0), s0,
-                             span + 2 * FLANK + LEAD + 1000, rng)
-        events.append((svtype, s0, e0))
-    fa, bam = _write(tmpdir, ref, reads)
+        reads += [(c, *r) for r in _span_reads(
+            refs[c], _donor(refs[c], svtype, s0, e0), s0,
+            span + 2 * FLANK + LEAD + 1000, rng)]
+        rows.append((c, s0, e0, i, svtype))
+    fa, bam = _write(tmpdir, refs, reads)
+    rows.sort()
     bed = os.path.join(tmpdir, "svs.bed")
     with open(bed, "w") as fh:
-        fh.write("".join(f"chrE\t{s}\t{e}\tSV{i}\t{t}\n"
-                         for i, (t, s, e) in enumerate(events)))
-    return fa, bam, bed, events
+        fh.write("".join(f"{contig_name(c)}\t{s}\t{e}\tSV{i}\t{t}\n"
+                         for c, s, e, i, t in rows))
+    return fa, bam, bed, [(t, s, e) for _, s, e, _, t in rows]
 
 
 def repeat_rows(H: int, R: int, B: int, seed: int, ms=(0,)):
@@ -231,12 +248,13 @@ def build_vcf_worklist(tmpdir: str, seed: int):
                     f"Other=ab/ab_aab/ab_chrE:{s0}:{e0}:{third}")
         # the scorers' read windows end past the event by one block
         read_len = (third - s0) + a + 2 * FLANK + LEAD + 1000
-        reads += _span_reads(ref, donor, s0, read_len, rng)
+        reads += [(0, *r) for r in _span_reads(ref, donor, s0, read_len,
+                                                rng)]
         records.append(f"chrE\t{s0 + 1}\t{kind.lower()}{n}\tN\t<SV>\t99"
                        f"\tPASS\t{info}\tGT\t0/1")
         out.append((kind, s0, e0, third))
         pos = third + a + GAP
-    fa, bam = _write(tmpdir, ref, reads)
+    fa, bam = _write(tmpdir, [ref], reads)
     vcf = os.path.join(tmpdir, "svs.vcf")
     with open(vcf, "w") as fh:
         fh.write("\n".join([

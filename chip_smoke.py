@@ -22,7 +22,15 @@ through scatter --jobs 2, a 2-rank torch.distributed (gloo) run with
 both ranks on the card, and --shard-by-contig shards merged, each
 byte-equal to one plain run; 6c one fused_batch's rows split over two
 streams of the card, and over every visible card, bit for bit the
-one-device launch), then the kernel list.  The last line of stdout is
+one-device launch), 7 accuracy and scale (7a the ten-class truth corpus,
+het and homo, 4 contigs x 400 kb, through vcf --validate-vcf-tandup:
+per-class results equal to ACCURACY_r5.json's, chr1's records byte-equal
+to the numpy oracle's; 7b the 108 repeat-heavy haps through the device
+window refiner, reaching its band QC, each window equal to the host
+refiner's; 7c the capstone fixture on 4 contigs, 176 events: a pipelined
+bed run, then a run killed mid-way and resumed with --resume, byte-equal
+to it), then the kernel list, whose launches count phases 4 and 7.  The
+last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card, nvcc and g++; exits non-zero without them.
 """
@@ -78,6 +86,11 @@ SMALL_AT = {"hist": SIZES[0], "left_hist": SIZES[0], "moment": SIZES[0],
 REPEAT_AT = {"hist": (12544, 12544), "left_hist": (12544, 1024),
              "kept_hist": (16384, 16384), "rdd_moment": (16384, 16384),
              "moment": (12544, 12544), "moment2": (12544, 1024)}
+# phase 7: the truth corpus of scripts/accuracy_corpus_torch.py at its
+# defaults (ACCURACY_r5.json holds the JAX package's results on it), and
+# the capstone's widths on CAPSTONE_CONTIGS of its 24 contigs
+CORPUS_CONTIGS, CORPUS_LEN, CORPUS_SEED = 4, 400000, 20260821
+CAPSTONE_CONTIGS = 4
 
 
 def _require(ok: bool, what: str) -> None:
@@ -315,7 +328,7 @@ def kernel_parity(fa, bam, events, reps: int):
 
 def repeat_parity(seed: int, reps: int, report) -> None:
     """Each kernel against its plain version on dense-hit rows
-    (sim/scale.py repeat_rows: a third of every hap and read is one 6 bp
+    (sim/worklists.py repeat_rows: a third of every hap and read is one 6 bp
     unit repeated) at B=20, (H, R) = its reported shape, k=10, with the
     tables its mode gives it: the m1b tables (kept_hist, rdd_moment, and
     moment without w10, as mode m1b calls it), the 50-threshold d-table
@@ -327,7 +340,7 @@ def repeat_parity(seed: int, reps: int, report) -> None:
     from vapor_tpu_torch.engine.fused import (batch_from_numpy, intercept_z,
                                               kept_table, row_codes)
     from vapor_tpu_torch.engine.kernels import build
-    from vapor_tpu_torch.sim.scale import repeat_rows
+    from vapor_tpu_torch.sim.worklists import repeat_rows
     k = 10
     for name, (H, R) in REPEAT_AT.items():
         if name not in build.GRID_POINTS:
@@ -595,7 +608,7 @@ def shards_phase(tmp, seed: int) -> None:
     counted by its --trace report."""
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.orchestrate import merge_outputs
-    from vapor_tpu_torch.sim.scale import build_event_worklist
+    from vapor_tpu_torch.sim.worklists import build_event_worklist
     d = os.path.join(tmp, "contigs")
     os.makedirs(d)
     fa, bam, bed, events = build_event_worklist(d, seed, n_contigs=4)
@@ -735,6 +748,208 @@ def mesh_phase(fa, bam, events, reps: int) -> None:
               f"{ms_two:.3f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: accuracy and scale
+# ---------------------------------------------------------------------------
+
+def _vcf_rows_of(path: str, chrom: str) -> bytes:
+    """The header lines of a VCF and its records on chrom, as bytes."""
+    with open(path, "rb") as fh:
+        return b"".join(x for x in fh if x.startswith(b"#") or
+                        x.startswith(chrom.encode() + b"\t"))
+
+
+def corpus_phase(tmp, launches) -> None:
+    """7a: the ten-class truth corpus (sim/corpus.py build_corpus, 4
+    contigs x 400 kb, het seed CORPUS_SEED, homo CORPUS_SEED + 1) through
+    vcf --validate-vcf-tandup on the card: per-class results equal to
+    ACCURACY_r5.json's (the JAX package's on the same corpus), and chr1's
+    records also through the numpy oracle on the CPU, byte-equal."""
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.sim.corpus import (build_corpus, evaluate,
+                                            parse_annotated)
+    with open(os.path.join(ROOT, "ACCURACY_r5.json")) as fh:
+        reference = json.load(fh)["zygosity"]
+    for i, zygosity in enumerate(("het", "homo")):
+        d = os.path.join(tmp, f"corpus_{zygosity}")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        fa, bam, vcf, truth = build_corpus(d, zygosity, CORPUS_CONTIGS,
+                                           CORPUS_LEN, CORPUS_SEED + i)
+        build_s = time.perf_counter() - t0
+        run = shutil.copyfile(vcf, os.path.join(d, "cuda.vcf"))
+        rows, wall, got = _timed_run(
+            f"corpus {zygosity}", kernels.NAMES, "vcf", fa, bam, run,
+            extra=["--validate-vcf-tandup"])
+        _require(len(rows) == len(truth), f"corpus {zygosity}: "
+                 f"{len(rows)} annotated records for {len(truth)} calls")
+        per_class = evaluate(parse_annotated(run + ".vapor"), truth)
+        want = reference[zygosity]["per_class"]
+        differ = sorted(k for k in set(per_class) | set(want)
+                        if per_class.get(k) != want.get(k))
+        _require(not differ, f"corpus {zygosity}: per-class results differ "
+                 f"from ACCURACY_r5.json in {differ}: " + "; ".join(
+                     f"{k}: card {per_class.get(k)}, reference "
+                     f"{want.get(k)}" for k in differ))
+        recs = [r.split("VaPor_REC=")[1].split("\t")[0] for r in rows
+                if "VaPor_REC=" in r]
+        n_reads = sum(len(x.split(",")) for x in recs if x != "NA")
+        for name in kernels.NAMES:
+            launches[name] += got[name]
+        one = os.path.join(d, "numpy_chr1.vcf")
+        with open(one, "wb") as fo:
+            fo.write(_vcf_rows_of(vcf, "chr1"))
+        t1 = time.perf_counter()
+        oracle_rows = run_cli("vcf", fa, bam, one, backend="numpy",
+                              device="cpu", extra=["--validate-vcf-tandup"])
+        oracle_s = time.perf_counter() - t1
+        _require(oracle_rows and _read_bytes(one + ".vapor") ==
+                 _vcf_rows_of(run + ".vapor", "chr1"),
+                 f"corpus {zygosity}: chr1's annotated records differ "
+                 f"between the card and the numpy oracle")
+        print(f"phase 7a corpus {zygosity}: {len(truth)} calls (built in "
+              f"{build_s:.1f} s), per-class results equal ACCURACY_r5.json"
+              f"'s ({len(per_class)} classes); {n_reads} reads scored in "
+              f"{wall:.2f} s: {len(truth) / wall:.2f} events/s, "
+              f"{n_reads / wall:.1f} reads/s; launches {got}; chr1's "
+              f"{len(oracle_rows)} records equal the numpy oracle's byte "
+              f"for byte ({oracle_s:.1f} s on the CPU)", flush=True)
+
+
+def band_phase(launches) -> None:
+    """7b: the 108 tandem-array haps of sim/corpus.py repeat_cases through
+    DeviceWindowRefiner on the card (self-stats rows through hist, the
+    band QC on the host); each window equal to the exact host refiner's
+    (engine/window.py window_size_refine, as _host_refine calls it),
+    which runs afterwards in worker processes.  A hap's stall is its
+    refine() call, call to return, where it hit the band."""
+    import multiprocessing
+    import torch
+    from concurrent.futures import ProcessPoolExecutor
+    from vapor_tpu_torch.engine import kernels, window_device
+    from vapor_tpu_torch.engine.window import window_size_refine
+    from vapor_tpu_torch.sim.corpus import repeat_cases
+    haps = [case[3] for case in repeat_cases()]
+    refiner = window_device.DeviceWindowRefiner(region_qc_cff=0.4, seed=0,
+                                                device="cuda")
+    kernels.reset_counts()
+    band0 = dict(window_device.BAND_STATS)
+    windows, stalls = [], []
+    t0 = time.perf_counter()
+    for hap in haps:
+        hits0 = window_device.BAND_STATS["band_hits"]
+        t1 = time.perf_counter()
+        windows.append(refiner.refine(hap))
+        if window_device.BAND_STATS["band_hits"] > hits0:
+            stalls.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    band = {x: window_device.BAND_STATS[x] - band0[x] for x in band0}
+    selfstats = sum(n for (name, route, _, _), n
+                    in kernels.LAUNCH_SHAPES.items()
+                    if name == "hist" and route == "selfstats")
+    _require(not any(kernels.PLAIN_CUDA_CALLS.values()),
+             f"band leg: plain versions ran on CUDA tensors: "
+             f"{kernels.PLAIN_CUDA_CALLS}")
+    _require(band["band_hits"] > 0, f"band leg: no band hit: {band}")
+    _require(selfstats == band["stat_rounds"] > 0,
+             f"band leg: {band['stat_rounds']} refiner rounds in "
+             f"{selfstats} self-stats launches of hist")
+    launches["hist"] += kernels.LAUNCHES["hist"]
+    t1 = time.perf_counter()
+    n = len(haps)
+    with ProcessPoolExecutor(
+            max_workers=min(6, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        host = [w for w, _ in pool.map(window_size_refine, haps,
+                                       [0.4] * n, [0] * n)]
+    host_s = time.perf_counter() - t1
+    bad = [i for i in range(n) if windows[i] != host[i]]
+    _require(not bad, f"band leg: device windows differ from the host "
+             f"refiner's on haps {bad}: "
+             f"{[(windows[i], host[i]) for i in bad]}")
+    print(f"phase 7b band leg: {n} repeat haps in {wall:.2f} s, "
+          f"{band['band_hits']} band hits ({band['band_hits'] / n:.4f} a "
+          f"hap) on {len(stalls)} haps, {selfstats} self-stats launches of "
+          f"hist; stall where a hap hit: total {sum(stalls):.3f} s, mean "
+          f"{sum(stalls) / len(stalls):.4f} s, max {max(stalls):.4f} s; "
+          f"refiner {band}; every window equals the host refiner's "
+          f"({host_s:.1f} s in worker processes)", flush=True)
+
+
+def capstone_phase(tmp, launches) -> None:
+    """7c: sim/scale.py build_scale_case at 4 contigs x 400 kb x 42
+    events, 16 reads each (the capstone's widths at a sixth of its
+    contigs): one pipelined bed run on the card, then the same run in a
+    subprocess with --resume, killed (SIGKILL) once a third of its rows
+    are written and rerun with --resume; the resumed output must equal
+    the pipelined run's byte for byte."""
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.sim.scale import build_scale_case
+    d = os.path.join(tmp, "capstone")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    case = build_scale_case(d, n_contigs=CAPSTONE_CONTIGS,
+                            contig_len=CORPUS_LEN, events_per=42,
+                            reads_per=16)
+    build_s = time.perf_counter() - t0
+    n = case["n_events"]
+    want = os.path.join(d, "pipelined.vapor")
+    rows, wall, got = _timed_run("capstone", kernels.NAMES, "bed",
+                                 case["fasta"], case["bam"], case["bed"],
+                                 want)
+    _require(len(rows) == n, f"capstone: {len(rows)} rows for {n} events")
+    called = [r.split("\t") for r in rows if r.split("\t")[5] != "NA"]
+    _require(called and all(math.isfinite(float(c[5])) for c in called),
+             "capstone: no score, or a non-finite one")
+    n_reads = sum(len(c[9].split(",")) for c in called)
+    for name in kernels.NAMES:
+        launches[name] += got[name]
+    out = os.path.join(d, "resumed.vapor")
+    cmd = [sys.executable, "-m", "vapor_tpu_torch", "bed", "--sv-input",
+           case["bed"], "--reference", case["fasta"], "--pacbio-input",
+           case["bam"], "--output-path", os.path.join(d, "figs_resume"),
+           "--output-file", out, "--device", "cuda", "--no-figures",
+           "--resume", "--trace"]
+
+    def written() -> int:
+        if not os.path.exists(out):
+            return 0
+        with open(out) as fh:
+            return sum(1 for x in fh if not x.startswith("#"))
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        while proc.poll() is None and written() < n // 3:
+            time.sleep(0.02)
+            _require(time.perf_counter() - t0 < 600, "capstone: the run "
+                     "to be killed wrote no third of its rows in 600 s")
+    finally:
+        proc.kill()
+        proc.wait()
+    at_kill = written()
+    _require(proc.returncode == -9 and 0 < at_kill < n,
+             f"capstone: the run was not killed mid-run (exit "
+             f"{proc.returncode}, {at_kill} of {n} rows)")
+    t1 = time.perf_counter()
+    err = _processes([(cmd, dict(os.environ))], "resumed capstone", 900)[0]
+    resumed_s = time.perf_counter() - t1
+    resumed, reports = _launches_in(err)
+    _require(reports == 1 and resumed["hist"] > 0,
+             f"capstone: the resumed run's launches {resumed}")
+    _require(_read_bytes(out) == _read_bytes(want),
+             "capstone: the resumed output differs from the pipelined run")
+    print(f"phase 7c capstone: {n} events, {case['n_reads']} reads on "
+          f"{CAPSTONE_CONTIGS} contigs (built in {build_s:.1f} s); "
+          f"pipelined {wall:.2f} s: {n / wall:.2f} events/s, {n_reads} "
+          f"reads scored, {n_reads / wall:.1f} reads/s; launches {got}; "
+          f"killed at {at_kill} rows, resumed in {resumed_s:.2f} s "
+          f"(process start included), launches {resumed}; resumed output "
+          f"equal to the pipelined run byte for byte", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -749,8 +964,8 @@ def main() -> int:
     try:
         from vapor_tpu_torch.engine import kernels
         from vapor_tpu_torch.engine.kernels import build
-        from vapor_tpu_torch.sim.scale import (build_event_worklist,
-                                               build_vcf_worklist)
+        from vapor_tpu_torch.sim.worklists import (build_event_worklist,
+                                                   build_vcf_worklist)
     except ImportError as exc:
         print(f"chip_smoke: vapor_tpu_torch not importable: {exc}",
               file=sys.stderr)
@@ -882,6 +1097,13 @@ def main() -> int:
         mesh_phase(fa, bam, events, args.reps)
         print(f"phase 6 scale-out: {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+        t0 = time.perf_counter()
+        corpus_phase(tmp, launches)
+        band_phase(launches)
+        capstone_phase(tmp, launches)
+        print(f"phase 7 accuracy and scale: {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

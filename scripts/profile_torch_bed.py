@@ -158,7 +158,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     from vapor_tpu_torch.cli import main as cli
     from vapor_tpu_torch.engine import kernels, window_device
-    from vapor_tpu_torch.sim.scale import build_event_worklist
+    from vapor_tpu_torch.sim.worklists import build_event_worklist
 
     with tempfile.TemporaryDirectory() as tmp:
         fa, bam, bed, events = build_event_worklist(tmp, args.seed)

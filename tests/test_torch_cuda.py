@@ -1,8 +1,9 @@
 """vapor_tpu_torch's CUDA kernels against their plain PyTorch versions
 (the window refiner's self-stats rows through hist included), the fused
 engine on the card against the same engine on the CPU, its rows split
-over two streams of the card against one launch, and the batching
-backend on the card against the unbatched one.
+over two streams of the card against one launch, the batching
+backend on the card against the unbatched one, and the device window
+refiner on the refiner-band census haps against the host refiner.
 
 Needs a CUDA card and nvcc: each test skips without one.  Run on the
 card with  python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -17,7 +18,7 @@ from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
                                           fused_batch_local, intercept_z,
                                           kept_table, row_codes)
 from vapor_tpu_torch.parallel.mesh import maybe_mesh_rows
-from vapor_tpu_torch.sim.scale import repeat_rows
+from vapor_tpu_torch.sim.worklists import repeat_rows
 from torch_rows import random_rows
 
 pytestmark = pytest.mark.cuda
@@ -291,3 +292,22 @@ def test_batching_on_card_equals_unbatched_under_concurrency(cuda):
         assert got == want
         assert got_del == want_del
         assert got_self == want_self
+
+
+def test_band_census_on_card_equals_host_refiner(cuda):
+    """Every fourth of the refiner-band census haps (sim/corpus.py
+    repeat_cases, tandem arrays) through DeviceWindowRefiner on the card:
+    its self-stats rows launch hist, some haps reach the band QC, and
+    every window equals window_size_refine's."""
+    from vapor_tpu_torch.engine.window import window_size_refine
+    from vapor_tpu_torch.engine.window_device import (BAND_STATS,
+                                                      DeviceWindowRefiner)
+    from vapor_tpu_torch.sim.corpus import repeat_cases
+    haps = [case[3] for case in repeat_cases()[::4]]
+    refiner = DeviceWindowRefiner(region_qc_cff=0.4, seed=0, device="cuda")
+    launched = kernels.LAUNCHES["hist"]
+    hits = BAND_STATS["band_hits"]
+    got = [refiner.refine(hap) for hap in haps]
+    assert kernels.LAUNCHES["hist"] > launched
+    assert BAND_STATS["band_hits"] > hits
+    assert got == [window_size_refine(hap, 0.4, 0)[0] for hap in haps]

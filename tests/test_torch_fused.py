@@ -23,7 +23,7 @@ from vapor_tpu.engine.fused import FusedStats as JaxStats
 from vapor_tpu_torch.engine import fused as tf
 from vapor_tpu_torch.engine import kernels
 from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD, hist_width
-from vapor_tpu_torch.sim.scale import repeat_rows
+from vapor_tpu_torch.sim.worklists import repeat_rows
 from test_fused_vs_oracle import _mutate, _scenarios
 from torch_rows import random_rows
 
@@ -280,7 +280,7 @@ def test_rdd_plain_versions_match_jax_stages(k, m):
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_plain_versions_match_jax_on_repeat_rows(k):
     """hist, kept_hist and rdd_moment against the JAX stages on dense-hit
-    rows (sim/scale.py repeat_rows: a third of each hap and read is one
+    rows (sim/worklists.py repeat_rows: a third of each hap and read is one
     6 bp unit repeated), where the card's strip walk takes its rare path
     on most groups of the repeat x repeat block."""
     Hs, Rs, B = 512, 512, 3

@@ -1,4 +1,5 @@
-"""vapor_tpu_torch stands alone: no file of it, nor chip_smoke.py,
+"""vapor_tpu_torch stands alone: no file of it, nor chip_smoke.py, nor
+the port's scripts (scripts/*_torch.py, scripts/profile_torch_bed.py),
 imports jax or vapor_tpu, and importing it loads neither."""
 import ast
 import os
@@ -15,6 +16,9 @@ FORBIDDEN = ("jax", "jaxlib", "vapor_tpu")
 def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "profile_torch_bed.py")
+    for f in sorted(os.listdir(os.path.join(ROOT, "scripts"))):
+        if f.endswith("_torch.py"):
+            yield os.path.join(ROOT, "scripts", f)
     for base, _, files in os.walk(os.path.join(ROOT, "vapor_tpu_torch")):
         for f in files:
             if f.endswith(".py"):
@@ -42,7 +46,13 @@ def test_no_file_imports_jax_or_vapor_tpu():
             "vapor_tpu_torch/parallel/mesh.py",
             "vapor_tpu_torch/parallel/multihost.py",
             "vapor_tpu_torch/utils/trace.py",
-            "scripts/profile_torch_bed.py"} <= names
+            "vapor_tpu_torch/sim/synth.py", "vapor_tpu_torch/sim/truthset.py",
+            "vapor_tpu_torch/sim/scale.py", "vapor_tpu_torch/sim/corpus.py",
+            "vapor_tpu_torch/sim/worklists.py",
+            "scripts/profile_torch_bed.py",
+            "scripts/accuracy_corpus_torch.py",
+            "scripts/measure_refiner_band_torch.py",
+            "scripts/capstone_scale_torch.py"} <= names
     bad = [(os.path.relpath(p, ROOT), name) for p in files
            for name in _imported(p)
            if name.split(".")[0] in FORBIDDEN]
@@ -52,6 +62,8 @@ def test_no_file_imports_jax_or_vapor_tpu():
 def test_import_loads_neither():
     code = ("import sys, vapor_tpu_torch.cli, "
             "vapor_tpu_torch.engine.fused, vapor_tpu_torch.sim.scale, "
+            "vapor_tpu_torch.sim.synth, vapor_tpu_torch.sim.truthset, "
+            "vapor_tpu_torch.sim.corpus, vapor_tpu_torch.sim.worklists, "
             "vapor_tpu_torch.engine.batching, "
             "vapor_tpu_torch.engine.window_device, "
             "vapor_tpu_torch.orchestrate, vapor_tpu_torch.io.tabix, "

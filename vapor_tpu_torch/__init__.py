@@ -12,8 +12,8 @@ Layer map:
   engine/   - numpy oracle, host window refiner, fused engine + kernels
   stats/    - QS/GS/GT/GQ genotyping
   writers/  - .vapor TSV + annotated VCF output
-  cli.py    - the bed subcommand
-  sim/      - synthetic worklist builder
+  cli.py    - the bed, vcf, ins, svelter, pdf and scatter subcommands
+  sim/      - synthetic worklists, the truth corpus, the scale fixture
 """
 
 __version__ = "0.1.0"

@@ -173,16 +173,22 @@ def _dist_finalize(local_out: str, final_out: str, dist) -> None:
 
 
 def _resume_keys(out_name: str):
-    """Keys of events already written (checkpoint/resume support)."""
+    """Keys of events already written (checkpoint/resume support).  A
+    last line without its newline, left by a run killed mid-write, is cut
+    off the file, so its event is scored again and the next row starts
+    on a line of its own."""
     done = set()
     if os.path.exists(out_name):
-        with open(out_name) as fin:
-            for line in fin:
-                if line.startswith("#") or not line.strip():
-                    continue
-                cols = line.split("\t")
-                done.add(":".join(cols[:4]) if len(cols) >= 10
-                         else cols[0])
+        with open(out_name, "rb+") as fh:
+            data = fh.read()
+            whole = data.rfind(b"\n") + 1
+            if whole < len(data):
+                fh.truncate(whole)
+        for line in data[:whole].decode().splitlines():
+            if line.startswith("#") or not line.strip():
+                continue
+            cols = line.split("\t")
+            done.add(":".join(cols[:4]) if len(cols) >= 10 else cols[0])
     return done
 
 
@@ -212,7 +218,8 @@ def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
     events = _shard(events, args.shard_index, args.num_shards,
                     dist=bool(dist) or args.shard_by_contig)
     done = _resume_keys(out_name) if args.resume else set()
-    if not (args.resume and os.path.exists(out_name)):
+    if not (args.resume and os.path.exists(out_name) and
+            os.path.getsize(out_name)):
         initiate_output(out_name)
     type_label = {"a/": "DEL", "/a": "DEL", "/": "DEL", "DEL": "DEL",
                   "a/a^": "INV", "a^/a": "INV", "a^/a^": "INV",

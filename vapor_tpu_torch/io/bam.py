@@ -258,7 +258,9 @@ def write_bam(path: str, references: List[Tuple[str, int]],
         nm = name.encode("ascii") + b"\x00"
         head += struct.pack("<i", len(nm)) + nm + struct.pack("<i", length)
 
-    body = b""
+    # joined once at the end: appending to one bytes object copies it
+    # whole each time, quadratic in the file's size
+    body = []
     for rec in records:
         nm = rec.name.encode("ascii") + b"\x00"
         cig = _encode_cigar(rec.cigar) if rec.cigar != "*" else b""
@@ -268,10 +270,10 @@ def write_bam(path: str, references: List[Tuple[str, int]],
             "<iiBBHHHiiii", rec.ref_id, rec.pos0, len(nm), rec.mapq,
             0, len(cig) // 4, rec.flag, len(rec.seq), -1, -1, 0)
         payload += nm + cig + seqb + qual
-        body += struct.pack("<i", len(payload)) + payload
+        body.append(struct.pack("<i", len(payload)) + payload)
 
     with open(path, "wb") as out:
-        blob = head + body
+        blob = b"".join([head, *body])
         for i in range(0, max(len(blob), 1), 60000):
             chunk = blob[i:i + 60000]
             if chunk:

@@ -29,8 +29,13 @@ to the numpy oracle's; 7b the 108 repeat-heavy haps through the device
 window refiner, reaching its band QC, each window equal to the host
 refiner's; 7c the capstone fixture on 4 contigs, 176 events: a pipelined
 bed run, then a run killed mid-way and resumed with --resume, byte-equal
-to it), then the kernel list, whose launches count phases 4 and 7.  The
-last line of stdout is
+to it), 8 the goldens and the pipeline depth (8a every golden of
+fixtures/golden/, bed, vcf plain and annotated, svelter and ins, on the
+card through both torch backends, byte-equal to the golden, and pdf
+on phase 4's smallest DUPs against the numpy oracle; 8b phase 4's
+bed worklist at --pipeline 1 and 24, byte-equal to phase 4), then the
+kernel list, whose launches count phases 4, 7 and 8.  The last line of
+stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card, nvcc and g++; exits non-zero without them.
 """
@@ -51,16 +56,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Peak rates of one H100 SXM at the 700 W limit: HBM bytes/s (NVIDIA data
-# sheet), and 32-bit integer operations/s, 132 SMs x 64 INT32 lanes x the
-# 1.98 GHz boost clock: a quarter of the sheet's 67 TFLOP/s FP32 rate,
-# which counts 128 lanes per SM and an FMA as two operations.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# per-hit accumulations of each kernel, beside the compares: 2 per
-# eligible cell (lane 0 of both strands), and lanes - 1 more per hit
-HIT_OPS = {"hist": 4, "left_hist": 1, "kept_hist": 1, "moment": 3,
-           "moment2": 5, "rdd_moment": 5}
 SIZES = (400, 3000, 9500)     # smallest, middle and largest DEL/INV bodies
 DUP_SIZES = (400, 3000, 6000)  # smallest, middle and largest DUP bodies
 # where each kernel's Pallas counterpart reaches pl.pallas_call
@@ -91,19 +86,13 @@ REPEAT_AT = {"hist": (12544, 12544), "left_hist": (12544, 1024),
 # the capstone's widths on CAPSTONE_CONTIGS of its 24 contigs
 CORPUS_CONTIGS, CORPUS_LEN, CORPUS_SEED = 4, 400000, 20260821
 CAPSTONE_CONTIGS = 4
+# phase 8a: the kernels that the goldens of fixtures/golden/ launch
+GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2")
 
 
 def _require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(what)
-
-
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    return out.splitlines()[0]
 
 
 def print_ptxas(name: str, log: str) -> None:
@@ -179,20 +168,11 @@ def _hap_lens(haps) -> list:
 
 
 def _bound(name: str, codes, hap_lens, outs, tables, hits: int):
-    """(least ms the card could take, "bytes" or "operations").  Cells
-    that can hit: hap rows m..hap_len - k (a later row's k-mer holds
-    HAP_PAD, which no read k-mer does) by read columns 0..rlen - k."""
-    ch, cf, cd, ms, rlens, k = codes
-    R = cf.shape[2]
-    lanes = ch.shape[1]
-    cells = sum(max(0, n - k + 1 - m) * max(0, min(rl - k, R - 1) + 1)
-                for n, m, rl in zip(hap_lens, ms.tolist(), rlens.tolist()))
-    ops = cells * 2 + hits * (lanes - 1 + HIT_OPS[name])
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (ch, cf, cd, ms, rlens, *tables, *outs))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes > t_ops else "operations"
+    """(least ms the card could take, "bytes" or "operations"): the
+    roofline of vapor_tpu_torch/engine/kernels/roofline.py."""
+    from vapor_tpu_torch.engine.kernels import roofline
+    return roofline.bound(*roofline.kernel_work(name, codes, hap_lens,
+                                                outs, tables, hits))
 
 
 def _measure(name, codes, hap_lens, hits, tables, kern, plain, reps,
@@ -950,6 +930,94 @@ def capstone_phase(tmp, launches) -> None:
           f"equal to the pipelined run byte for byte", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the goldens and the pipeline depth
+# ---------------------------------------------------------------------------
+
+def goldens_phase(launches) -> None:
+    """8a: every golden of fixtures/golden/ (sim/goldens.py: bed, the
+    junction-mode bed, vcf of every SV type plain and annotated, the vcf
+    fallbacks, svelter and ins) on the card through the default backend
+    and through torch-nobatch; each output byte-equal to its golden,
+    counts set to 0 before each golden and read after it.  The goldens
+    launch GOLDEN_KERNELS: no golden scores a call by rdd (their DUP,
+    DISDUP and DUP_INV calls are NA, and vcf mode validates no DUP
+    record without --validate-vcf-tandup)."""
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.sim import goldens
+    for backend in ("torch", "torch-nobatch"):
+        t0 = time.perf_counter()
+        results = goldens.check_goldens(
+            backend, "cuda", log=lambda line: print(line, flush=True))
+        wall = time.perf_counter() - t0
+        failed = sorted(n for n, r in results.items() if not r["ok"])
+        _require(not failed, f"goldens [{backend}]: {failed} differ from "
+                 f"fixtures/golden/")
+        plain = {n: r["plain_on_cuda"] for n, r in results.items()
+                 if r["plain_on_cuda"]}
+        _require(not plain, f"goldens [{backend}]: plain versions ran on "
+                 f"CUDA tensors: {plain}")
+        total = {n: sum(r["launches"][n] for r in results.values())
+                 for n in kernels.NAMES}
+        _require(all(total[n] for n in GOLDEN_KERNELS), f"goldens "
+                 f"[{backend}]: a kernel of the path never launched: "
+                 f"{total}")
+        for name in kernels.NAMES:
+            launches[name] += total[name]
+        print(f"phase 8a goldens [{backend}]: {len(results)} of "
+              f"{len(results)} byte-equal to fixtures/golden/ in {wall:.2f} "
+              f"s; launches {total}", flush=True)
+
+
+def pdf_phase(tmp, fa, bam, events, launches) -> None:
+    """8a, pdf mode, which has no golden: phase 4's smallest tandem DUPs
+    and DEL as a 4-column BED, --sv-type TANDUP --size-cff 50, on the
+    card through the default backend against the numpy oracle on the
+    CPU, byte for byte; the DEL is filtered out, the DUPs score by
+    rdd."""
+    from vapor_tpu_torch.engine import kernels
+    d = os.path.join(tmp, "pdf")
+    os.makedirs(d)
+    bed4 = os.path.join(d, "calls.bed")
+    keep = [(t, s, e) for t, s, e in events if e - s == DUP_SIZES[0] and
+            t in ("DUP", "DEL")]
+    with open(bed4, "w") as fo:
+        fo.writelines(f"chrE\t{s}\t{e}\t{t}\n" for t, s, e in keep)
+    flags = ["--sv-type", "TANDUP", "--size-cff", "50", "--PB-supp", "3"]
+    rows, wall, got = _timed_run(
+        "pdf", ("hist", "kept_hist", "rdd_moment"), "pdf", fa, bam, bed4,
+        os.path.join(d, "cuda.vapor"), extra=flags)
+    want = run_cli("pdf", fa, bam, bed4, os.path.join(d, "numpy.vapor"),
+                   backend="numpy", device="cpu", extra=flags)
+    n_dup = sum(t == "DUP" for t, _, _ in keep)
+    _require(rows == want and len(rows) == n_dup and
+             all(r.split("\t")[1] != "NA" for r in rows),
+             f"pdf on the card: {rows} against the numpy oracle's {want}")
+    for name in kernels.NAMES:
+        launches[name] += got[name]
+    print(f"phase 8a pdf: {n_dup} of {len(keep)} calls kept by --sv-type, "
+          f"scored, equal to the numpy oracle in {wall:.2f} s; launches "
+          f"{got}", flush=True)
+
+
+def depth_phase(tmp, fa, bam, bed, want: str, launches) -> None:
+    """8b: phase 4's bed worklist at --pipeline 1 (no two events share a
+    launch) and at 24, each byte-equal to phase 4's output."""
+    from vapor_tpu_torch.engine import kernels
+    for depth in (1, 24):
+        out = os.path.join(tmp, f"depth{depth}.vapor")
+        rows, wall, got = _timed_run(
+            f"bed --pipeline {depth}", kernels.NAMES, "bed", fa, bam, bed,
+            out, extra=["--pipeline", str(depth)])
+        _require(_read_bytes(out) == _read_bytes(want),
+                 f"bed --pipeline {depth} differs from phase 4")
+        for name in kernels.NAMES:
+            launches[name] += got[name]
+        print(f"phase 8b pipeline depth {depth}: {len(rows)} events equal "
+              f"to phase 4 in {wall:.2f} s: {len(rows) / wall:.2f} "
+              f"events/s; launches {got}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1105,6 +1173,14 @@ def main() -> int:
         print(f"phase 7 accuracy and scale: {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
 
+        t0 = time.perf_counter()
+        goldens_phase(launches)
+        pdf_phase(tmp, fa, bam, events, launches)
+        depth_phase(tmp, fa, bam, bed, os.path.join(tmp, "cuda.vapor"),
+                    launches)
+        print(f"phase 8 goldens and pipeline depth: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vapor_tpu_torch/engine/kernels/csrc/{name}.cu",
@@ -1122,7 +1198,8 @@ def main() -> int:
              "selfstats_plain_ms", "selfstats_bound_ms", "selfstats_shape")
             if x in report[name]}}
         for name in kernels.NAMES]}))
-    print(_card_line())
+    from vapor_tpu_torch.engine.kernels.roofline import card_line
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

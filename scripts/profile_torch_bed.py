@@ -42,7 +42,6 @@ import json
 import os
 import pstats
 import re
-import subprocess
 import sys
 import tempfile
 import threading
@@ -145,6 +144,52 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def device_profile(fn, top: int = 12, labels=()) -> dict:
+    """Runs fn() once under torch.profiler (CPU + CUDA activities) and
+    sums the device time of every kernel by name: the run's wall time,
+    the device's busy seconds and idle share of the wall, the six
+    kernels' seconds, and the `top` kernels by device time.  Each of
+    `labels`, a torch.profiler.record_function range that fn opens,
+    gets the device seconds of the kernels launched inside it
+    ("labelled_s": a label that fn never opened is left out, and one
+    whose kernels this torch version's profiler does not attribute to
+    it gets None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vapor_tpu_torch.engine import kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel, labelled = {}, {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if evt.key in labels:
+            # the range's CPU entry holds its kernels' device time (a
+            # CUDA entry of the same name spans the range on the card)
+            if evt.device_type.name == "CPU":
+                us = float(getattr(evt, "device_time_total",
+                                   getattr(evt, "cuda_time_total", 0.0)))
+                labelled[evt.key] = us / 1e6 if us > 0 else None
+        elif us > 0 and evt.device_type.name == "CUDA":
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
+    device_s = sum(by_kernel.values()) / 1e6
+    ours = {n: sum(us for key, us in by_kernel.items()
+                   if re.search(rf"(?<![A-Za-z_]){n}_kernel", key)) / 1e6
+            for n in kernels.NAMES}
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
+    out = {"traced_wall_s": wall, "device_busy_s": device_s,
+           "device_idle_share": 1 - device_s / wall,
+           "our_kernels_s": ours,
+           "top_device_kernels_s": {k: v / 1e6 for k, v in ranked}}
+    if labels:
+        out["labelled_s"] = labelled
+        out["device_kernels_s"] = {k: v / 1e6 for k, v in by_kernel.items()}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -155,9 +200,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_bed: no CUDA card", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
     from vapor_tpu_torch.cli import main as cli
     from vapor_tpu_torch.engine import kernels, window_device
+    from vapor_tpu_torch.engine.kernels.roofline import card_line
     from vapor_tpu_torch.sim.worklists import build_event_worklist
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -185,21 +230,7 @@ def main() -> int:
                             in sorted(kernels.LAUNCH_SHAPES.items())
                             if route == "selfstats"}
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run("traced")
-            wall_traced = time.perf_counter() - t0
-        by_kernel = {}
-        for evt in prof.key_averages():
-            us = _device_us(evt)
-            if us > 0 and evt.device_type.name == "CUDA":
-                by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + us
-        device_s = sum(by_kernel.values()) / 1e6
-        ours = {n: sum(us for key, us in by_kernel.items()
-                       if re.search(rf"(?<![A-Za-z_]){n}_kernel", key)) / 1e6
-                for n in kernels.NAMES}
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        traced = device_profile(lambda: run("traced"))
 
         prof_host = cProfile.Profile()
         t0 = time.perf_counter()
@@ -242,21 +273,14 @@ def main() -> int:
     out = {
         "backend": args.backend,
         "card": torch.cuda.get_device_name(0),
-        "card_name_power_limit": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip(),
+        "card_name_power_limit": card_line(),
         "events": len(events),
         "wall_s": wall_plain,
         "events_per_s": len(events) / wall_plain,
         "launches": launches,
         "band_stats": band,
         "self_stats_launches_by_H": refiner_launches,
-        "traced_wall_s": wall_traced,
-        "device_busy_s": device_s,
-        "device_idle_share": 1 - device_s / wall_traced,
-        "our_kernels_s": ours,
-        "top_device_kernels_s": {k: v / 1e6 for k, v in top},
+        **traced,
         "cprofile_wall_s": wall_host,
         "host_stage_cumulative_s": stages,
         "timed_wall_s": wall_timed,

@@ -2,8 +2,9 @@
 (the window refiner's self-stats rows through hist included), the fused
 engine on the card against the same engine on the CPU, its rows split
 over two streams of the card against one launch, the batching
-backend on the card against the unbatched one, and the device window
-refiner on the refiner-band census haps against the host refiner.
+backend on the card against the unbatched one, the device window
+refiner on the refiner-band census haps against the host refiner, and
+three goldens of fixtures/golden/ through the CLI on the card.
 
 Needs a CUDA card and nvcc: each test skips without one.  Run on the
 card with  python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -311,3 +312,20 @@ def test_band_census_on_card_equals_host_refiner(cuda):
     assert kernels.LAUNCHES["hist"] > launched
     assert BAND_STATS["band_hits"] > hits
     assert got == [window_size_refine(hap, 0.4, 0)[0] for hap in haps]
+
+
+@pytest.mark.parametrize("backend", ["torch", "torch-nobatch"])
+def test_goldens_on_card(cuda, backend):
+    """The DEL, ins and svelter goldens through the CLI on the card
+    (sim/goldens.py), byte-equal to fixtures/golden/, through the
+    kernels of their modes (del, m1b, w10) and no plain version run on
+    CUDA tensors."""
+    from vapor_tpu_torch.sim.goldens import check_goldens
+    got = check_goldens(backend, "cuda",
+                        ["bed_del_11", "ins_melt", "svelter_basic"])
+    assert all(r["ok"] for r in got.values()), got
+    assert all(r["plain_on_cuda"] == 0 for r in got.values())
+    assert all(r["launches"]["hist"] > 0 for r in got.values())
+    assert got["bed_del_11"]["launches"]["moment2"] > 0
+    assert got["ins_melt"]["launches"]["moment"] > 0
+    assert got["svelter_basic"]["launches"]["left_hist"] > 0

@@ -164,11 +164,13 @@ _FAR = 2 ** 30      # stands for "no value" in the min/max scans
 
 def _bins(v, lo, hi):
     """Bin index 0..10 of each value: the number of t in 1..10 with
-    10 (v - lo) >= t (hi - lo)."""
-    b = torch.zeros(torch.broadcast_shapes(v.shape, lo.shape),
-                    dtype=torch.int64, device=v.device)
+    10 (v - lo) >= t (hi - lo).  (The shape comes from the broadcast
+    itself: torch.broadcast_shapes imports sympy at its first call,
+    seconds of every new process.)"""
+    d, span = 10 * (v - lo), hi - lo
+    b = torch.zeros_like(d)
     for t in range(1, 11):
-        b += 10 * (v - lo) >= t * (hi - lo)
+        b += d >= t * span
     return b
 
 

@@ -33,11 +33,17 @@ to it), 8 the goldens and the pipeline depth (8a every golden of
 fixtures/golden/, bed, vcf plain and annotated, svelter and ins, on the
 card through both torch backends, byte-equal to the golden, and pdf
 on phase 4's smallest DUPs against the numpy oracle; 8b phase 4's
-bed worklist at --pipeline 1 and 24, byte-equal to phase 4), then the
-kernel list, whose launches count phases 4, 7 and 8.  The last line of
-stdout is
+bed worklist at --pipeline 1 and 24, byte-equal to phase 4), 9 the v1
+dense engine, --backend torch-v1 (9a its per-row integers on the card
+equal to the CPU's in every mode, on phase 3's rows, and its ms per read
+and peak memory at H = R = 16384, on random sequence and on a 2-bp
+tandem repeat; 9b every golden through torch-v1, byte-equal; 9c phase
+4's bed worklist through torch-v1, byte-equal to phase 4, hist launched
+by its window refiner), then the kernel list,
+whose launches count phases 4, 7, 8 and 9.  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Needs one CUDA card, nvcc and g++; exits non-zero without them.
+Needs one CUDA card, nvcc and g++; exits non-zero without them.  Every
+process it starts, and what those start, has ended when it exits.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -88,6 +95,57 @@ CORPUS_CONTIGS, CORPUS_LEN, CORPUS_SEED = 4, 400000, 20260821
 CAPSTONE_CONTIGS = 4
 # phase 8a: the kernels that the goldens of fixtures/golden/ launch
 GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2")
+
+
+# every process this script starts, each in a session of its own, so that
+# killing its group also ends what it started (a scatter's shards)
+_STARTED: list = []
+
+
+def _popen(cmd, **kwargs) -> subprocess.Popen:
+    proc = subprocess.Popen(cmd, start_new_session=True, **kwargs)
+    _STARTED.append(proc)
+    return proc
+
+
+def _children() -> list:
+    """The pids of this process's children, as /proc lists them."""
+    me, pids = os.getpid(), []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == me:
+            pids.append(int(d))
+    return pids
+
+
+def _kill_group(proc: subprocess.Popen) -> None:
+    """SIGKILLs the process and every process of its group; reaps it."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    proc.wait()
+
+
+def _stop_all() -> None:
+    """Ends every process this script started and everything those
+    started, and multiprocessing's resource tracker (which phase 7b's
+    worker pool starts), reaping each; then any other child that is
+    left.  Nothing the script started outlives it."""
+    for proc in _STARTED:
+        _kill_group(proc)
+    from multiprocessing import resource_tracker
+    resource_tracker._resource_tracker._stop()
+    for pid in _children():
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
 
 
 def _require(ok: bool, what: str) -> None:
@@ -564,16 +622,14 @@ def _processes(cmds, label: str, timeout: float):
     """Runs the (command, environment) pairs at once from the repo root;
     returns their stderr texts.  Fails if any exits non-zero; kills every
     one that is still running when this returns."""
-    procs = [subprocess.Popen(cmd, cwd=ROOT, env=env,
-                              stdout=subprocess.DEVNULL,
-                              stderr=subprocess.PIPE, text=True)
+    procs = [_popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, text=True)
              for cmd, env in cmds]
     try:
         errs = [p.communicate(timeout=timeout)[1] for p in procs]
     finally:
         for p in procs:
-            p.kill()
-            p.wait()
+            _kill_group(p)
     for p, err in zip(procs, errs):
         _require(p.returncode == 0, f"{label}: a process exited "
                  f"{p.returncode}:\n{err[-3000:]}")
@@ -899,16 +955,15 @@ def capstone_phase(tmp, launches) -> None:
             return sum(1 for x in fh if not x.startswith("#"))
 
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
-                            stderr=subprocess.DEVNULL)
+    proc = _popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                  stderr=subprocess.DEVNULL)
     try:
         while proc.poll() is None and written() < n // 3:
             time.sleep(0.02)
             _require(time.perf_counter() - t0 < 600, "capstone: the run "
                      "to be killed wrote no third of its rows in 600 s")
     finally:
-        proc.kill()
-        proc.wait()
+        _kill_group(proc)
     at_kill = written()
     _require(proc.returncode == -9 and 0 < at_kill < n,
              f"capstone: the run was not killed mid-run (exit "
@@ -1016,6 +1071,247 @@ def depth_phase(tmp, fa, bam, bed, want: str, launches) -> None:
         print(f"phase 8b pipeline depth {depth}: {len(rows)} events equal "
               f"to phase 4 in {wall:.2f} s: {len(rows) / wall:.2f} "
               f"events/s; launches {got}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the v1 dense engine (--backend torch-v1)
+# ---------------------------------------------------------------------------
+
+def _v1_rows(fa, bam, event, mode: str):
+    """Phase 3's rows of one event as the v1 engine takes them: the (H,)
+    hap, the (B, R) forward and reverse-complement read codes, rlens and
+    ms."""
+    import numpy as np
+    from vapor_tpu_torch.engine import oracle
+    from vapor_tpu_torch.engine.constants import READ_PAD
+    haps, fw, rlens, ms = _event_rows(fa, bam, event, mode)
+    rc = np.full_like(fw, READ_PAD)
+    for b, n in enumerate(rlens):
+        rc[b, :n] = oracle._COMP_LUT[fw[b, :n]][::-1]
+    return np.array(haps[0]), fw, rc, rlens, ms
+
+
+def _v1_on(dev, rows, k: int, H: int, R: int, tables, oms, zs, mode: str,
+           use_masks: bool, hits=None):
+    """One _dot_stats_batch pass of the v1 engine on `dev`; the decoded
+    HapStats."""
+    import numpy as np
+    import torch
+    from vapor_tpu_torch.engine import kernel as v1
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    out = v1._dot_stats_batch(*map(put, (*rows, *tables, oms, zs)), k,
+                              H=H, R=R, mode=mode, use_masks=use_masks,
+                              hits=None if hits is None else
+                              tuple([h] for h in hits))
+    return v1.HapStats(*(x.cpu().numpy() for x in out))
+
+
+def _v1_equal(a, b) -> bool:
+    from vapor_tpu_torch.engine import kernel as v1
+    return all(getattr(a, x).shape == getattr(b, x).shape and
+               (getattr(a, x) == getattr(b, x)).all()
+               for x in v1.STATS + ("h_d", "h_a"))
+
+
+def _v1_hits(dev, rows, k: int, H: int, R: int):
+    """The (bb, ii, cc) hit coordinates of each strand, its blocks
+    joined."""
+    import torch
+    from vapor_tpu_torch.engine import kernel as v1
+    hap, fw, rc, _, ms = (torch.from_numpy(x).to(dev) for x in rows)
+    return tuple(tuple(map(torch.cat, zip(*v1._hit_blocks(
+        hap, x, ms.long(), k, H, R)))) for x in (fw, rc))
+
+
+def v1_engine_phase(fa, bam, events, seed: int, reps: int) -> None:
+    """9a: the v1 engine's _dot_stats_batch on the card against the same
+    function on the CPU, on phase 3's rows of the smallest DEL (del
+    rows), INV (m1b) and DUP (rdd), k = 10 and 40: the hit coordinates
+    of both strands, then every mode (hist unmasked and masked, m1b,
+    w10, rdd, all) with the m1b cleaning tables as masks, or_mode 0 and
+    1 on alternate rows and a nonzero z; every decoded integer equal.
+    Then, at the main path's largest shape (the largest DUP's rdd rows,
+    H = R = 16384): one read held against the CPU in mode all, and the
+    card's ms per read of the first pass (hits and histograms) and of a
+    later masked pass, and its peak memory."""
+    import numpy as np
+    import torch
+    from vapor_tpu_torch.engine import kernel as v1
+    rng = np.random.default_rng(seed)
+    cuda = torch.device("cuda")
+    cases = [("DEL", SIZES[0], "del"), ("INV", SIZES[0], "m1b"),
+             ("DUP", DUP_SIZES[0], "rdd")]
+    n_checked = 0
+    for svtype, body, mode in cases:
+        ev = next(e for e in events if e[0] == svtype and
+                  e[2] - e[1] == body)
+        rows = _v1_rows(fa, bam, ev, mode)
+        B, R = rows[1].shape
+        H = rows[0].shape[0]
+        WH = v1._hist_layout(H, R)[0]
+        oms = (np.arange(B) % 2).astype(np.int32)
+        zs = rng.integers(-60, 61, B).astype(np.int32)
+        ones = np.ones((B, WH), dtype=bool)
+        for k in (10, 40):
+            hits = {d: _v1_hits(d, rows, k, H, R) for d in (cuda, "cpu")}
+            _require(all(torch.equal(g.cpu(), w) for g, w in zip(
+                sum(hits[cuda], ()), sum(hits["cpu"], ()))),
+                f"v1 hit coordinates differ from the CPU's: {svtype} "
+                f"{body}, k={k}")
+            p = _v1_on(cuda, rows, k, H, R, (ones, ones), oms, zs, "hist",
+                       False, hits[cuda])
+            _require(_v1_equal(p, _v1_on("cpu", rows, k, H, R, (ones, ones),
+                                         oms, zs, "hist", False,
+                                         hits["cpu"])),
+                     f"v1 hist pass differs from the CPU's: {svtype} "
+                     f"{body}, k={k}")
+            tables = tuple(np.stack([v1.kept_table(h, 10, 10, False)
+                                     for h in x]) for x in (p.h_d, p.h_a))
+            for m, masked in (("hist", True), ("m1b", True), ("w10", True),
+                              ("rdd", True), ("all", True),
+                              ("all", False)):
+                got, want = (_v1_on(d, rows, k, H, R, tables, oms, zs, m,
+                                    masked, hits[d]) for d in (cuda, "cpu"))
+                _require(_v1_equal(got, want), f"v1 mode {m} (masks "
+                         f"{masked}) differs from the CPU's: {svtype} "
+                         f"{body}, k={k}")
+                n_checked += 1
+            print(f"phase 9a v1 {svtype} {body} ({mode} rows) B={B} H={H} "
+                  f"R={R} k={k}: {int(p.n_dots.sum())} hits; hit "
+                  f"coordinates and 7 passes equal to the CPU's", flush=True)
+
+    ev = next(e for e in events if e[0] == "DUP" and
+              e[2] - e[1] == DUP_SIZES[-1])
+    rows = _v1_rows(fa, bam, ev, "rdd")
+    B, R = rows[1].shape
+    H = rows[0].shape[0]
+    WH = v1._hist_layout(H, R)[0]
+    oms = (np.arange(B) % 2).astype(np.int32)
+    zs = rng.integers(-60, 61, B).astype(np.int32)
+    ones = np.ones((B, WH), dtype=bool)
+    k = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = _v1_on(cuda, rows, k, H, R, (ones, ones), oms, zs, "hist", False)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    tables = tuple(np.stack([v1.kept_table(h, 10, 10, False) for h in x])
+                   for x in (p.h_d, p.h_a))
+    hits = _v1_hits(cuda, rows, k, H, R)
+    hits_ms = _time_ms(lambda: _v1_hits(cuda, rows, k, H, R), 1)
+    pass_ms = _time_ms(lambda: _v1_on(cuda, rows, k, H, R, tables, oms, zs,
+                                      "rdd", True, hits), reps)
+    one = (rows[0], *(x[:1] for x in rows[1:]))
+    got, want = (_v1_on(d, one, k, H, R, tuple(t[:1] for t in tables),
+                        oms[:1], zs[:1], "all", True) for d in (cuda, "cpu"))
+    _require(_v1_equal(got, want), f"v1 at H={H} R={R} differs from the "
+             f"CPU's on one read")
+    print(f"phase 9a v1 at the largest shape, DUP {DUP_SIZES[-1]} (rdd "
+          f"rows) B={B} H={H} R={R} k={k}: {int(p.n_dots.sum())} hits; one "
+          f"read in mode all equal to the CPU's; first pass {first_ms:.1f} "
+          f"ms ({first_ms / B:.2f} ms a read), hit coordinates {hits_ms:.1f} "
+          f"ms ({hits_ms / B:.2f} ms a read), a masked rdd pass on them "
+          f"{pass_ms:.2f} ms ({pass_ms / B:.3f} ms a read); peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (random sequence); {n_checked} passes "
+          f"held equal at the smaller shapes", flush=True)
+    v1_repeat_memory(cuda)
+
+
+def v1_repeat_memory(dev) -> None:
+    """9a on dense hits: a 2-bp tandem-repeat hap of 16,000 bases against
+    two reads of the same repeat (H = R = 16384), where every in-phase
+    cell is a hit: one unmasked pass in mode all on the card, its hit
+    count the repeat's exact count, every hit once in each histogram,
+    and its peak memory, which the streamed blocks bound whatever the
+    number of hits."""
+    import numpy as np
+    import torch
+    from vapor_tpu_torch.engine import kernel as v1
+    from vapor_tpu_torch.engine import oracle
+    L, B, k = 16000, 2, 10
+    H = R = v1.bucket_for(L + 1)
+    rep = oracle.encode("AC" * (L // 2))
+    hap = np.full(H, v1.HAP_PAD, dtype=np.uint8)
+    hap[:L] = rep
+    fw = np.full((B, R), v1.READ_PAD, dtype=np.uint8)
+    fw[:, :L] = rep
+    rc = np.full_like(fw, v1.READ_PAD)
+    rc[:, :L] = oracle._COMP_LUT[rep][::-1]
+    zeros = np.zeros(B, dtype=np.int32)
+    ones = np.ones((B, v1._hist_layout(H, R)[0]), dtype=bool)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = _v1_on(dev, (hap, fw, rc, np.full(B, L, dtype=np.int32), zeros),
+               k, H, R, (ones, ones), zeros, zeros, "all", False)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    n = L - k + 1                  # k-mer starts in the hap and in a read
+    want = ((n + 1) // 2) ** 2 + (n // 2) ** 2    # pairs of one parity
+    _require(all((x == want).all() for x in (p.n_dots, p.cnt,
+                                             p.h_d.sum(1), p.h_a.sum(1))),
+             f"v1 tandem repeat: {p.n_dots} hits, {p.cnt} kept, histogram "
+             f"totals {p.h_d.sum(1)} / {p.h_a.sum(1)}; the repeat gives "
+             f"{want} a read")
+    print(f"phase 9a v1 on a 2-bp tandem repeat B={B} H={H} R={R} k={k}: "
+          f"{want} hits a read, as the repeat gives, each once in both "
+          f"histograms; one pass in mode all {wall_ms:.1f} ms "
+          f"({wall_ms / B:.1f} ms a read); peak memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+
+
+def v1_goldens_phase(launches) -> None:
+    """9b: every golden of fixtures/golden/ through --backend torch-v1 on
+    the card (sim/goldens.py, counts set to 0 before each golden), each
+    byte-equal to its golden.  The v1 engine's own device work is torch
+    ops; the path's one kernel is hist, through the device window
+    refiner's self-stats rows."""
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.sim import goldens
+    t0 = time.perf_counter()
+    results = goldens.check_goldens(
+        "torch-v1", "cuda", log=lambda line: print(line, flush=True))
+    wall = time.perf_counter() - t0
+    failed = sorted(n for n, r in results.items() if not r["ok"])
+    _require(not failed, f"goldens [torch-v1]: {failed} differ from "
+             f"fixtures/golden/")
+    plain = {n: r["plain_on_cuda"] for n, r in results.items()
+             if r["plain_on_cuda"]}
+    _require(not plain, f"goldens [torch-v1]: plain versions ran on CUDA "
+             f"tensors: {plain}")
+    total = {n: sum(r["launches"][n] for r in results.values())
+             for n in kernels.NAMES}
+    _require(total["hist"] > 0 and not any(
+        total[n] for n in kernels.NAMES if n != "hist"),
+        f"goldens [torch-v1]: the refiner's hist did not launch, or a "
+        f"fused engine kernel did: {total}")
+    launches["hist"] += total["hist"]
+    print(f"phase 9b goldens [torch-v1]: {len(results)} of {len(results)} "
+          f"byte-equal to fixtures/golden/ in {wall:.2f} s; launches "
+          f"{total}", flush=True)
+
+
+def v1_bed_phase(tmp, fa, bam, bed, events, want: str, wall_torch: float,
+                 launches) -> None:
+    """9c: phase 4's bed worklist through --backend torch-v1 on the card,
+    byte-equal to phase 4's output; events/s beside phase 4's (the
+    default backend), and the hist launches of the refiner."""
+    from vapor_tpu_torch.engine import kernels
+    out = os.path.join(tmp, "v1.vapor")
+    rows, wall, got = _timed_run("bed torch-v1", ("hist",), "bed", fa, bam,
+                                 bed, out, backend="torch-v1")
+    _require(_read_bytes(out) == _read_bytes(want),
+             "bed --backend torch-v1 differs from phase 4")
+    _require(not any(got[n] for n in kernels.NAMES if n != "hist"),
+             f"bed torch-v1 launched a fused engine kernel: {got}")
+    launches["hist"] += got["hist"]
+    print(f"phase 9c bed [torch-v1]: all {len(rows)} events equal to phase "
+          f"4 in {wall:.2f} s: {len(rows) / wall:.2f} events/s (the "
+          f"default backend {len(events) / wall_torch:.2f}); hist launches "
+          f"of the refiner {got['hist']}", flush=True)
 
 
 def main() -> int:
@@ -1181,6 +1477,14 @@ def main() -> int:
         print(f"phase 8 goldens and pipeline depth: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+        t0 = time.perf_counter()
+        v1_engine_phase(fa, bam, events, args.seed, args.reps)
+        v1_goldens_phase(launches)
+        v1_bed_phase(tmp, fa, bam, bed, events,
+                     os.path.join(tmp, "cuda.vapor"), wall, launches)
+        print(f"phase 9 v1 engine: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vapor_tpu_torch/engine/kernels/csrc/{name}.cu",
@@ -1207,4 +1511,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        _stop_all()
+    sys.exit(code)

@@ -2,6 +2,7 @@
 FusedBackend and the numpy oracle: the scores must be equal as floats."""
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -140,11 +141,35 @@ def test_redefine_diagonal_on_dup_haps_matches_oracle(backends):
     assert checked >= 6
 
 
+def test_large_miss_matches_oracle(backends):
+    """An INV read whose miss (1,754) lies past R + 1027 + k - rlen, where
+    vapor_tpu's v1 engine (jax-v1) moves its reverse-strand diagonal
+    starts: both fused engines keep the oracle's within-10% counts."""
+    from vapor_tpu.io.fasta import reverse_complement
+    ours, theirs = backends
+    rng = np.random.default_rng(3)
+    hap = "".join(rng.choice(list("ACGT"), 3000))
+    a, n = 1814, 700
+    alt = hap[:a] + reverse_complement(hap[a:a + n]) + hap[a + n:]
+    reads = [[alt[a - 40:a + n + 10], a - 60, "x"],
+             [hap[a - 40:a + n + 10], a - 60, "y"]]
+    want = [oracle.score_within_10perc_m1b(hap, alt, r[0], r[1], 10)
+            for r in reads]
+    assert want == [[635, 66], [65, 635]]
+    for backend in (ours, theirs):
+        got = backend.score_batch("within_10perc_m1b", hap, alt, reads, 10)
+        assert _floats(got) == _floats(want)
+
+
 def test_get_backend_names():
     from vapor_tpu_torch.engine.batching import BatchingBackend
     assert isinstance(get_backend("numpy"), NumpyBackend)
     assert get_backend("torch", "cpu").device.type == "cpu"
     assert type(get_backend("torch", "cpu")) is BatchingBackend
     assert type(get_backend("torch-nobatch", "cpu")) is FusedBackend
+    from vapor_tpu_torch.engine.kernel import V1Backend
+    v1 = get_backend("torch-v1", "cpu")
+    assert type(v1) is V1Backend and v1.name == "torch-v1"
+    assert v1.device.type == "cpu"
     with pytest.raises(ValueError):
         get_backend("jax")

@@ -61,7 +61,11 @@ def test_no_file_imports_jax_or_vapor_tpu():
             "scripts/scaling_sim_torch.py",
             "scripts/scaling_curve_torch.py",
             "scripts/profile_engine_torch.py",
-            "scripts/profile_e2e_torch.py"} <= names
+            "scripts/profile_e2e_torch.py",
+            "vapor_tpu_torch/engine/kernel.py",
+            "vapor_tpu_torch/engine/legacy.py",
+            "vapor_tpu_torch/grammar/classify.py",
+            "vapor_tpu_torch/prep.py"} <= names
     bad = [(os.path.relpath(p, ROOT), name) for p in files
            for name in _imported(p)
            if name.split(".")[0] in FORBIDDEN]
@@ -80,7 +84,9 @@ def test_import_loads_neither():
             "vapor_tpu_torch.orchestrate, vapor_tpu_torch.io.tabix, "
             "vapor_tpu_torch.native, vapor_tpu_torch.parallel.mesh, "
             "vapor_tpu_torch.parallel.multihost, "
-            "vapor_tpu_torch.utils.trace; "
+            "vapor_tpu_torch.utils.trace, vapor_tpu_torch.engine.kernel, "
+            "vapor_tpu_torch.engine.legacy, vapor_tpu_torch.grammar.classify, "
+            "vapor_tpu_torch.prep; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'vapor_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -93,6 +99,6 @@ def test_torch_backend_without_card_raises():
     from vapor_tpu_torch.engine.scoring import get_backend
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    for name in ("torch", "torch-nobatch"):
+    for name in ("torch", "torch-nobatch", "torch-v1"):
         with pytest.raises(RuntimeError, match="CUDA"):
             get_backend(name)

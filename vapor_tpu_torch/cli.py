@@ -3,7 +3,7 @@ svelter,pdf,scatter} ...``.
 
 The argument surface is vapor-tpu's (reference ``vapor`` script,
 vapor:287-296, plus the framework flags), with ``--device {cuda,cpu}``
-and ``--backend {torch,torch-nobatch,numpy}``.  Scale-out:
+and ``--backend {torch,torch-nobatch,torch-v1,numpy}``.  Scale-out:
 
 * ``scatter`` splits the worklist by contig and runs one
   ``python -m vapor_tpu_torch`` process per contig (``--jobs`` at a
@@ -71,11 +71,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--PB-supp", required=False,
                         help="minimum number of evaluable PacBio reads")
     parser.add_argument("--backend", default="torch",
-                        choices=["torch", "torch-nobatch", "numpy"],
+                        choices=["torch", "torch-nobatch", "torch-v1",
+                                 "numpy"],
                         help="scoring backend (default: torch, the fused "
                              "engine with cross-event batching and the "
                              "device window refiner; torch-nobatch "
-                             "launches each request on its own)")
+                             "launches each request on its own; torch-v1 "
+                             "is the v1 dense engine)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="device of the torch backend (default: cuda; "
                              "a missing card is an error)")

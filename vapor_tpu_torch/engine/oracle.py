@@ -619,10 +619,38 @@ def _nearest_to_diagonal(ii: np.ndarray, jj: np.ndarray
     return keys, np.asarray([best[i] for i in keys.tolist()], dtype=np.int64)
 
 
+def _expand_pairs(ii, jj, ww):
+    out = []
+    for i, j, w in zip(ii.tolist(), jj.tolist(), ww.tolist()):
+        out.extend([[int(i), int(j)]] * int(w))
+    return out
+
+
+def score_directed_m1b(ref_seq: str, alt_seq: str, read: str, miss: int,
+                       window: int) -> List[float]:
+    """pyx:205-225 — KDE ratio-regressed directed distance (unused by
+    the CLI; host-only because of the gaussian-KDE mode fit)."""
+    from .legacy import eu_dis_reg_calcu
+    r, a = _pair(window, read, miss, ref_seq, alt_seq)
+    if not (r.n_dots / len(ref_seq) > 0.1 and a.n_dots / len(alt_seq) > 0.1):
+        return [0, 0]
+    if not (r.span / len(ref_seq) > 0.7 and a.span / len(alt_seq) > 0.7):
+        return [0, 0]
+    rm = clean_mask_diag_and_anti(r.ii, r.jj, r.ww)
+    am = clean_mask_diag_and_anti(a.ii, a.jj, a.ww)
+    if rm.any() and am.any():
+        return [eu_dis_reg_calcu(_expand_pairs(r.ii[rm], r.jj[rm],
+                                               r.ww[rm])),
+                eu_dis_reg_calcu(_expand_pairs(a.ii[am], a.jj[am],
+                                               a.ww[am]))]
+    return [0, 0]
+
+
 SCORERS = {
     "abs_dis_m1b": score_abs_dis_m1b,
     "within_10perc_m1b": score_within_10perc_m1b,
     "redefine_diagonal": score_redefine_diagonal,
     "abs_dis_m1": score_abs_dis_m1,
     "abs_dis_m2": score_abs_dis_m2,
+    "directed_m1b": score_directed_m1b,
 }

@@ -1,5 +1,5 @@
-"""Scoring backends: the numpy oracle on the host, or the fused engine on
-a torch device.
+"""Scoring backends: the numpy oracle on the host, or the fused engine
+(or the v1 dense engine) on a torch device.
 
 Validators request scores for a whole read list at once so the device
 backend can batch (read x haplotype) pairs, across events too
@@ -28,8 +28,9 @@ class NumpyBackend:
 def get_backend(name: str = "torch", device=None):
     """'torch' (the fused engine behind the cross-event batching
     backend), 'torch-nobatch' (the fused engine, one launch per
-    request) or 'numpy'.  The torch backends run on `device`, CUDA unless
-    a device is given, and raise when CUDA is asked for and absent."""
+    request), 'torch-v1' (the v1 dense engine, engine/kernel.py) or
+    'numpy'.  The torch backends run on `device`, CUDA unless a device
+    is given, and raise when CUDA is asked for and absent."""
     if name == "numpy":
         return NumpyBackend()
     device = "cuda" if device is None else device
@@ -39,4 +40,7 @@ def get_backend(name: str = "torch", device=None):
     if name == "torch-nobatch":
         from .fused import FusedBackend
         return FusedBackend(device)
+    if name == "torch-v1":
+        from .kernel import V1Backend
+        return V1Backend(device)
     raise ValueError(f"unknown backend {name!r}")

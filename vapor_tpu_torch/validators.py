@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence
 
 from .config import DEFAULT_CONFIG, VaporConfig
 from .engine.fused import FusedBackend
+from .engine.kernel import V1Backend
 from .engine.scoring import get_backend
 from .engine.window import window_size_refine
 from .engine.window_device import DeviceWindowRefiner
@@ -66,7 +67,7 @@ class ValidatorContext:
         # the torch backends refine on their device (in the batched
         # backend's flushes where it batches); numpy refines on the host
         self._refiner = None
-        if isinstance(self.backend, FusedBackend):
+        if isinstance(self.backend, (FusedBackend, V1Backend)):
             self._refiner = DeviceWindowRefiner(
                 config.region_qc_cff,
                 submit=getattr(self.backend, "submit_selfstats", None),

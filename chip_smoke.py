@@ -11,7 +11,12 @@ Phases, each fatal on failure: 1 build (nvcc's -Xptxas=-v report:
 registers, shared memory, spills), 2 input, 3 kernel parity and timing
 (at each mode's event sizes, every kernel also on dense-hit repeat rows
 at its reported shape, with its grid's waves, and hist on the window
-refiner's self-stats row of the largest DUP alt hap), 4 end to end on
+refiner's self-stats row of the largest DUP alt hap; at the reported
+shapes also the device time apart from host work, the host time of a
+wrapper call and the bound share; after phase 9, the same at every
+(route, H, R) that phase 4's bed run and phase 7c's capstone run
+launched, on their rows, and each kernel's launch-weighted time over
+its bound in each run), 4 end to end on
 cuda through the default backend (cross-event batching, the device
 window refiner) and through torch-nobatch, byte-equal (bed, then vcf),
 5 CPU and oracle cross-check of the default backend, 6 scale-out (6a the
@@ -40,7 +45,9 @@ and peak memory at H = R = 16384, on random sequence and on a 2-bp
 tandem repeat; 9b every golden through torch-v1, byte-equal; 9c phase
 4's bed worklist through torch-v1, byte-equal to phase 4, hist launched
 by its window refiner), then the kernel list,
-whose launches count phases 4, 7, 8 and 9.  The last line of stdout is
+whose launches count phases 4, 7, 8 and 9, and whose device_ms,
+bound_share, lost_ms_bed / lost_ms_capstone and buckets come from phase
+3 (engine/kernels/timing.py).  The last line of stdout is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one CUDA card, nvcc and g++; exits non-zero without them.  Every
 process it starts, and what those start, has ended when it exits.
@@ -65,6 +72,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SIZES = (400, 3000, 9500)     # smallest, middle and largest DEL/INV bodies
 DUP_SIZES = (400, 3000, 6000)  # smallest, middle and largest DUP bodies
+L2_BYTES = 50e6               # the H100's L2 cache
 # where each kernel's Pallas counterpart reaches pl.pallas_call
 REPLACES = {
     "hist": "experiments/pallas_fused.py:268",
@@ -169,20 +177,6 @@ def print_ptxas(name: str, log: str) -> None:
               f"{spill.group(2) if spill else '?'}", flush=True)
 
 
-def _time_ms(fn, reps: int) -> float:
-    import torch
-    fn()                                    # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 # ---------------------------------------------------------------------------
 # phase 3: kernel parity at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -225,54 +219,81 @@ def _hap_lens(haps) -> list:
     return [int(n) for n in (haps != HAP_PAD).sum(1)]
 
 
-def _bound(name: str, codes, hap_lens, outs, tables, hits: int):
-    """(least ms the card could take, "bytes" or "operations"): the
-    roofline of vapor_tpu_torch/engine/kernels/roofline.py."""
-    from vapor_tpu_torch.engine.kernels import roofline
-    return roofline.bound(*roofline.kernel_work(name, codes, hap_lens,
-                                                outs, tables, hits))
-
-
-def _measure(name, codes, hap_lens, hits, tables, kern, plain, reps,
-             label):
+def _measure(name, args, hap_lens, hits, reps, label, kwargs=None,
+             timed=False):
     """Holds one kernel against its plain version (every output integer
-    equal), times both and prints one line.  Returns (max |diff|, ms,
-    plain ms, bound ms, bounded by)."""
+    equal) on the wrapper's arguments `args` (codes, then tables and
+    flags), times the kernel call by call, host work included (call_ms),
+    and the plain version's parity call (plain_ms), and prints one line.
+    With `timed`, also its device time apart from host work
+    (engine/kernels/timing.py): device_ms (fill + kernel from the C entry
+    point, taking turns over args and the same rows rolled by one),
+    fill_ms, host_us a wrapper call, and bound_share = bound / device_ms.
+    Returns the numbers as a dict."""
     import torch
-    got, want = kern(), plain()
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.kernels import roofline, timing
+    kwargs = kwargs or {}
+    kern = functools.partial(getattr(kernels, name), *args, **kwargs)
+    plain = functools.partial(getattr(kernels, f"{name}_plain"), *args,
+                              **{x: v for x, v in kwargs.items()
+                                 if x != "route"})
+    got = kern()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = plain()
+    stop.record()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max(int((g.long() - w.long()).abs().max())
               for g, w in zip(got, want))
+    codes = args[:6]
     B, H, R, k = (codes[0].shape[0], codes[0].shape[2], codes[1].shape[2],
                   codes[5])
     _require(err == 0, f"{name} differs from its plain version on {label} "
-             f"rows, H={H}, R={R}, k={k}: max |diff| {err}")
-    ms_k = _time_ms(kern, reps)
-    ms_p = _time_ms(plain, 1)
-    bound, bound_by = _bound(name, codes, hap_lens, got, tables, hits)
-    print(f"parity {name:10s} {label} B={B:2d} H={H:5d} R={R:5d} k={k}: "
-          f"equal; kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, "
-          f"bound {bound:.4f} ms, {hits} hits", flush=True)
-    return err, ms_k, ms_p, bound, bound_by
+             f"rows, B={B}, H={H}, R={R}, k={k}: max |diff| {err}")
+    out = {"max_abs_err": err, "call_ms": timing.call_ms(kern, reps),
+           "plain_ms": start.elapsed_time(stop),
+           "shape": f"B={B} H={H} R={R} k={k}"}
+    tables = [a for a in args[6:] if isinstance(a, torch.Tensor)]
+    out["bound_ms"], out["bound_by"] = roofline.bound(*roofline.kernel_work(
+        name, codes, hap_lens, got, tables, hits))
+    line = (f"parity {name:10s} {label} B={B:2d} H={H:5d} R={R:5d} k={k}: "
+            f"equal; kernel {out['call_ms']:.4f} ms, plain "
+            f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms, "
+            f"{hits} hits")
+    if timed:
+        second = functools.partial(getattr(kernels, name),
+                                   *timing.rolled(args), **kwargs)
+        out["device_ms"], out["fill_ms"] = timing.device_ms([kern, second])
+        out["host_us"] = timing.host_us([kern, second])
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        both = 2 * roofline.tensor_bytes(
+            [a for a in args if isinstance(a, torch.Tensor)] + list(got))
+        out["l2"] = "warm" if both <= L2_BYTES else "spills"
+        line += (f"; device {out['device_ms']:.4f} ms (fill "
+                 f"{out['fill_ms']:.4f}), host {out['host_us']:.1f} us a "
+                 f"call, bound share {out['bound_share']:.3f}, L2 "
+                 f"{out['l2']} ({both / 1e6:.1f} MB in two batches)")
+    print(line, flush=True)
+    return out
 
 
-def _compare(name, body, k, codes, hap_lens, hits, tables, kern, plain,
-             reps, report):
+def _compare(name, body, k, args, hap_lens, hits, reps, report):
     """_measure on the rows of one event; keeps the numbers of the
-    reported shape, and the kernel's time at the smallest body."""
-    err, ms_k, ms_p, bound, bound_by = _measure(
-        name, codes, hap_lens, hits, tables, kern, plain, reps,
-        f"body {body}")
-    B, H, R = codes[0].shape[0], codes[0].shape[2], codes[1].shape[2]
+    reported shape (device time too), and the kernel's call time at the
+    smallest body."""
+    at = body == REPORT_AT[name] and k == 10
+    got = _measure(name, args, hap_lens, hits, reps, f"body {body}",
+                   timed=at)
     entry = report.setdefault(name, {"max_abs_err": 0})
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    if body == REPORT_AT[name] and k == 10:
-        entry.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
-                     bound_by=bound_by, shape=f"B={B} H={H} R={R} k={k}")
+    entry["max_abs_err"] = max(entry["max_abs_err"], got["max_abs_err"])
+    if at:
+        entry.update({x: v for x, v in got.items() if x != "max_abs_err"},
+                     ms=got["call_ms"])
     if body == SMALL_AT[name] and k == 10:
-        entry.update(small_ms=ms_k, small_shape=f"B={B} H={H} R={R} k={k}")
+        entry.update(small_ms=got["call_ms"], small_shape=got["shape"])
 
 
 def kernel_parity(fa, bam, events, reps: int):
@@ -309,36 +330,19 @@ def kernel_parity(fa, bam, events, reps: int):
             ka50 = kept_table(kernels.left_hist_plain(*codes_d, kd50),
                               10, 50, True)
             runs = {
-                "hist": (codes_i, n_i, hits_i, (),
-                         lambda c=codes_i: kernels.hist(*c),
-                         lambda c=codes_i: kernels.hist_plain(*c)),
-                "moment": (codes_i, n_i, hits_i, (kd_i, ka_i),
-                           lambda c=codes_i: kernels.moment(
-                               *c, kd_i, ka_i, False),
-                           lambda c=codes_i: kernels.moment_plain(
-                               *c, kd_i, ka_i, False)),
-                "left_hist": (codes_d, n_d, hits_d, (kd50,),
-                              lambda c=codes_d: kernels.left_hist(*c, kd50),
-                              lambda c=codes_d: kernels.left_hist_plain(
-                                  *c, kd50)),
-                "moment2": (codes_d, n_d, hits_d,
-                            (kd_d, ka_d, kd50, ka50),
-                            lambda c=codes_d: kernels.moment2(
-                                *c, kd_d, ka_d, kd50, ka50),
-                            lambda c=codes_d: kernels.moment2_plain(
-                                *c, kd_d, ka_d, kd50, ka50)),
+                "hist": (codes_i, n_i, hits_i),
+                "moment": ((*codes_i, kd_i, ka_i, False), n_i, hits_i),
+                "left_hist": ((*codes_d, kd50), n_d, hits_d),
+                "moment2": ((*codes_d, kd_d, ka_d, kd50, ka50), n_d,
+                            hits_d),
             }
             for name, run in runs.items():
                 _compare(name, body, k, *run, reps, report)
             # moment's w10 call (fused_batch's w10 mode) on the same rows
             # with the 50-threshold tables: held equal, its time printed
             # beside the reported m1b call's
-            err = _measure("moment", codes_d, n_d, hits_d, (kd50, ka50),
-                           lambda c=codes_d: kernels.moment(
-                               *c, kd50, ka50, True),
-                           lambda c=codes_d: kernels.moment_plain(
-                               *c, kd50, ka50, True),
-                           reps, f"body {body} w10")[0]
+            err = _measure("moment", (*codes_d, kd50, ka50, True), n_d,
+                           hits_d, reps, f"body {body} w10")["max_abs_err"]
             report["moment"]["max_abs_err"] = max(
                 report["moment"]["max_abs_err"], err)
     for body in DUP_SIZES:
@@ -351,15 +355,9 @@ def kernel_parity(fa, bam, events, reps: int):
             print(f"intercepts at DUP body {body}, k={k}: "
                   f"{int(found.sum())} of {found.numel()} rows",
                   flush=True)
-            _compare("kept_hist", body, k, codes, lens, hits, (kd, ka),
-                     lambda c=codes: kernels.kept_hist(*c, kd, ka),
-                     lambda c=codes: kernels.kept_hist_plain(*c, kd, ka),
+            _compare("kept_hist", body, k, (*codes, kd, ka), lens, hits,
                      reps, report)
-            _compare("rdd_moment", body, k, codes, lens, hits,
-                     (kd, ka, z),
-                     lambda c=codes: kernels.rdd_moment(*c, kd, ka, z),
-                     lambda c=codes: kernels.rdd_moment_plain(*c, kd, ka,
-                                                              z),
+            _compare("rdd_moment", body, k, (*codes, kd, ka, z), lens, hits,
                      reps, report)
     return report
 
@@ -407,16 +405,11 @@ def repeat_parity(seed: int, reps: int, report) -> None:
             found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka),
                                    H)
             args = (kd, ka, torch.where(found, z + 2 * m, 0).to(torch.int32))
-        tables = tuple(x for x in args if isinstance(x, torch.Tensor))
-        kern = functools.partial(getattr(kernels, name), *codes, *args)
-        plain = functools.partial(getattr(kernels, f"{name}_plain"), *codes,
-                                  *args)
-        err, ms_k, _, bound, _ = _measure(name, codes, _hap_lens(batch[0]),
-                                          hits, tables, kern, plain, reps,
-                                          "repeat")
+        got = _measure(name, (*codes, *args), _hap_lens(batch[0]), hits,
+                       reps, "repeat")
         report[name].update(
-            max_abs_err=max(report[name]["max_abs_err"], err),
-            repeat_ms=ms_k, repeat_bound_ms=bound)
+            max_abs_err=max(report[name]["max_abs_err"], got["max_abs_err"]),
+            repeat_ms=got["call_ms"], repeat_bound_ms=got["bound_ms"])
 
 
 def walk_waves(report) -> None:
@@ -464,18 +457,85 @@ def selfstats_parity(fa, events, reps: int, report) -> None:
     for k in (10, 40):
         c = (*row_codes(h, reads, n, k), torch.zeros_like(n), n, k)
         hits = int(kernels.hist_plain(*c)[2][:, :2].sum())
-        err, ms_k, ms_p, bound, _ = _measure(
-            "hist", c, [len(codes)], hits, (),
-            functools.partial(kernels.hist, *c),
-            functools.partial(kernels.hist_plain, *c), reps,
-            f"self-stats length {len(codes)}")
+        got = _measure("hist", c, [len(codes)], hits, reps,
+                       f"self-stats length {len(codes)}",
+                       {"route": "selfstats"}, timed=k == 10)
         report["hist"]["max_abs_err"] = max(report["hist"]["max_abs_err"],
-                                            err)
+                                            got["max_abs_err"])
         if k == 10:
+            shape = f"B=1 H=R={H} length={len(codes)} k={k}"
             report["hist"].update(
-                selfstats_ms=ms_k, selfstats_plain_ms=ms_p,
-                selfstats_bound_ms=bound,
-                selfstats_shape=f"B=1 H=R={H} length={len(codes)} k={k}")
+                selfstats_ms=got["call_ms"],
+                selfstats_plain_ms=got["plain_ms"],
+                selfstats_bound_ms=got["bound_ms"], selfstats_shape=shape)
+            report["hist"]["selfstats"] = {
+                x: got[x] for x in ("device_ms", "fill_ms", "call_ms",
+                                    "host_us", "bound_ms", "bound_by",
+                                    "bound_share", "l2")}
+            report["hist"]["selfstats"]["shape"] = shape
+
+
+def bucket_parity(runs, reps: int, report) -> None:
+    """Phase 3 at the main path's buckets, once phases 4 and 7c have run:
+    each kernel at every (route, H, R) that the bed worklist's run
+    (runs["bed"]) or the capstone's (runs["capstone"]) launched it at, on
+    the rows of that run's first call there (the bed run's where both
+    launched it), cut to B=20 (B=1 for hist's self-stats rows): held
+    equal to its plain version, its device time apart from host work,
+    call time, host time and bound (_measure).  Then each kernel's
+    launch-weighted time over its bound in each run (roofline.lost_ms),
+    and its launch-weighted bound share, sum(launches x bound) /
+    sum(launches x device ms)."""
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.kernels import build, roofline, timing
+    device, bound = {}, {}
+    for key in sorted(set(runs["bed"].shapes) | set(runs["capstone"].shapes)):
+        name, route, H, R = key
+        src = "bed" if key in runs["bed"].shapes else "capstone"
+        _require(key in runs[src].args, f"{key}: launched in the {src} run "
+                 f"but no call recorded")
+        args, kwargs = runs[src].args[key]
+        args = timing.tile_rows(args, 1 if route == "selfstats" else 20)
+        hits = int(kernels.hist(*args[:6])[2][:, :2].sum())
+        n = {x: runs[x].shapes.get(key, 0) for x in runs}
+        got = _measure(name, args, timing.hap_lens(args[0], args[5]), hits,
+                       reps, f"{route} bucket ({src} rows; launches bed "
+                       f"{n['bed']}, capstone {n['capstone']})", kwargs,
+                       timed=True)
+        device[key], bound[key] = got["device_ms"], got["bound_ms"]
+        B = args[0].shape[0]
+        blocks, per_sm, sms, _ = build.grid_info(
+            name, B, H, R, args[0].shape[1], torch.cuda.current_device())
+        entry = report[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], got["max_abs_err"])
+        entry.setdefault("buckets", []).append({
+            "route": route, "H": H, "R": R, "B": B, "k": args[5],
+            "rows": src, "launches_bed": n["bed"],
+            "launches_capstone": n["capstone"],
+            "waves": blocks / (per_sm * sms),
+            **{x: got[x] for x in ("device_ms", "fill_ms", "call_ms",
+                                   "host_us", "bound_ms", "bound_by",
+                                   "bound_share", "plain_ms", "l2")}})
+    for src, run in runs.items():
+        lost = roofline.lost_ms(run.shapes, device, bound)
+        for name, route in [(x, "score") for x in kernels.NAMES] + \
+                [("hist", "selfstats")]:
+            keys = [x for x in run.shapes if x[:2] == (name, route)]
+            _require(keys, f"the {src} run never launched {name} ({route})")
+            share = sum(run.shapes[x] * bound[x] for x in keys) / sum(
+                run.shapes[x] * device[x] for x in keys)
+            entry = report[name] if route == "score" \
+                else report[name]["selfstats"]
+            entry[f"lost_ms_{src}"] = lost[name, route]
+            entry[f"bound_share_{src}"] = share
+            print(f"phase 3 buckets {name} {route}: {src} run, "
+                  f"{sum(run.shapes[x] for x in keys)} launches at "
+                  f"{len(keys)} shapes, {lost[name, route]:.3f} ms over the "
+                  f"bound, launch-weighted bound share {share:.3f}",
+                  flush=True)
+    print(f"phase 3 buckets: {len(device)} shapes, each equal to its plain "
+          f"version", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -509,24 +569,41 @@ def _copy_lines(src: str, dst: str, keep) -> str:
     return dst
 
 
-def _timed_run(label, counted, *cli_args, **cli_kw):
+class MainPath:
+    """What one main-path run launched: kernels.LAUNCH_SHAPES' counts
+    after it (`shapes`), and the arguments of each (name, route, H, R)
+    key's first call (`args`, engine/kernels/timing.py capture)."""
+
+    def __init__(self):
+        self.shapes: dict = {}
+        self.args: dict = {}
+
+
+def _timed_run(label, counted, *cli_args, record=None, **cli_kw):
     """Drives one main path on the card with every count set to 0 just
     before it; checks the kernels of that path launched, the refiner's
     self-stats rounds went through hist, and no plain version ran on
     CUDA tensors.  Prints the window refiner's tallies and the launches
-    by H x R, hist's self-stats launches apart.  Returns (rows, seconds,
-    launches)."""
+    by H x R, hist's self-stats launches apart.  With `record` (a
+    MainPath), keeps the run's launch shapes and first calls there.
+    Returns (rows, seconds, launches)."""
+    import contextlib
     import torch
     from vapor_tpu_torch.engine import kernels, window_device
+    from vapor_tpu_torch.engine.kernels import timing
     kernels.reset_counts()
     band0 = dict(window_device.BAND_STATS)
     t0 = time.perf_counter()
-    rows = run_cli(*cli_args, **cli_kw)
+    with timing.capture(record.args) if record is not None \
+            else contextlib.nullcontext():
+        rows = run_cli(*cli_args, **cli_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     plain_on_cuda = dict(kernels.PLAIN_CUDA_CALLS)
     shapes = dict(kernels.LAUNCH_SHAPES)
+    if record is not None:
+        record.shapes = shapes
     band = {x: window_device.BAND_STATS[x] - band0[x] for x in band0}
     refiner = {H: n for (_, route, H, _), n in sorted(shapes.items())
                if route == "selfstats"}
@@ -739,6 +816,7 @@ def mesh_phase(fa, bam, events, reps: int) -> None:
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
                                               fused_batch_local)
+    from vapor_tpu_torch.engine.kernels.timing import call_ms
     from vapor_tpu_torch.parallel.mesh import maybe_mesh_rows, mesh_devices
     dev = torch.device("cuda", 0)
     mode_kernels = {"rdd": ("hist", "kept_hist", "rdd_moment"),
@@ -770,9 +848,9 @@ def mesh_phase(fa, bam, events, reps: int) -> None:
                             hap_index=idx)[2]
         _require(torch.equal(every, one), f"{mode} rows over every visible "
                  f"card ({len(cards)}) differ from one launch")
-        ms_one = _time_ms(lambda: fused_batch_local(h, r, rl, m, k_idx,
-                                                    mode, idx), reps)
-        ms_two = _time_ms(lambda: maybe_mesh_rows(
+        ms_one = call_ms(lambda: fused_batch_local(h, r, rl, m, k_idx,
+                                                   mode, idx), reps)
+        ms_two = call_ms(lambda: maybe_mesh_rows(
             h, r, rl, m, k_idx, H, R, mode, hap_index=idx,
             devices=[dev, dev]), reps)
         alone = " (one card: the one-device launch)" if len(cards) < 2 \
@@ -913,13 +991,14 @@ def band_phase(launches) -> None:
           f"({host_s:.1f} s in worker processes)", flush=True)
 
 
-def capstone_phase(tmp, launches) -> None:
+def capstone_phase(tmp, launches, record) -> None:
     """7c: sim/scale.py build_scale_case at 4 contigs x 400 kb x 42
     events, 16 reads each (the capstone's widths at a sixth of its
     contigs): one pipelined bed run on the card, then the same run in a
     subprocess with --resume, killed (SIGKILL) once a third of its rows
     are written and rerun with --resume; the resumed output must equal
-    the pipelined run's byte for byte."""
+    the pipelined run's byte for byte.  The pipelined run's launch shapes
+    and first calls go to `record`."""
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.sim.scale import build_scale_case
     d = os.path.join(tmp, "capstone")
@@ -933,7 +1012,7 @@ def capstone_phase(tmp, launches) -> None:
     want = os.path.join(d, "pipelined.vapor")
     rows, wall, got = _timed_run("capstone", kernels.NAMES, "bed",
                                  case["fasta"], case["bam"], case["bed"],
-                                 want)
+                                 want, record=record)
     _require(len(rows) == n, f"capstone: {len(rows)} rows for {n} events")
     called = [r.split("\t") for r in rows if r.split("\t")[5] != "NA"]
     _require(called and all(math.isfinite(float(c[5])) for c in called),
@@ -1139,6 +1218,7 @@ def v1_engine_phase(fa, bam, events, seed: int, reps: int) -> None:
     import numpy as np
     import torch
     from vapor_tpu_torch.engine import kernel as v1
+    from vapor_tpu_torch.engine.kernels.timing import call_ms
     rng = np.random.default_rng(seed)
     cuda = torch.device("cuda")
     cases = [("DEL", SIZES[0], "del"), ("INV", SIZES[0], "m1b"),
@@ -1201,9 +1281,9 @@ def v1_engine_phase(fa, bam, events, seed: int, reps: int) -> None:
     tables = tuple(np.stack([v1.kept_table(h, 10, 10, False) for h in x])
                    for x in (p.h_d, p.h_a))
     hits = _v1_hits(cuda, rows, k, H, R)
-    hits_ms = _time_ms(lambda: _v1_hits(cuda, rows, k, H, R), 1)
-    pass_ms = _time_ms(lambda: _v1_on(cuda, rows, k, H, R, tables, oms, zs,
-                                      "rdd", True, hits), reps)
+    hits_ms = call_ms(lambda: _v1_hits(cuda, rows, k, H, R), 1)
+    pass_ms = call_ms(lambda: _v1_on(cuda, rows, k, H, R, tables, oms, zs,
+                                     "rdd", True, hits), reps)
     one = (rows[0], *(x[:1] for x in rows[1:]))
     got, want = (_v1_on(d, one, k, H, R, tuple(t[:1] for t in tables),
                         oms[:1], zs[:1], "all", True) for d in (cuda, "cpu"))
@@ -1362,9 +1442,10 @@ def main() -> int:
         # bed: DEL (del, w10 junction), INV (m1b, w10 junction) and DUP
         # (rdd) run all six kernels; the default backend first, then
         # torch-nobatch (one launch per request), which must agree
+        runs = {"bed": MainPath(), "capstone": MainPath()}
         rows, wall, launches = _timed_run(
             "bed", kernels.NAMES, "bed", fa, bam, bed,
-            os.path.join(tmp, "cuda.vapor"))
+            os.path.join(tmp, "cuda.vapor"), record=runs["bed"])
         _require(len(rows) == len(events),
                  f"{len(rows)} rows for {len(events)} events")
         called = [r.split("\t") for r in rows if r.split("\t")[5] != "NA"]
@@ -1465,7 +1546,7 @@ def main() -> int:
         t0 = time.perf_counter()
         corpus_phase(tmp, launches)
         band_phase(launches)
-        capstone_phase(tmp, launches)
+        capstone_phase(tmp, launches, runs["capstone"])
         print(f"phase 7 accuracy and scale: {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
 
@@ -1485,6 +1566,11 @@ def main() -> int:
         print(f"phase 9 v1 engine: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+        t0 = time.perf_counter()
+        bucket_parity(runs, args.reps, report)
+        print(f"phase 3 buckets: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vapor_tpu_torch/engine/kernels/csrc/{name}.cu",
@@ -1495,11 +1581,14 @@ def main() -> int:
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name]["bound_by"],
          "library_ms": None, "shape": report[name]["shape"],
-         "small_ms": report[name]["small_ms"],
-         "small_shape": report[name]["small_shape"],
+         **{x: report[name][x] for x in (
+             "device_ms", "fill_ms", "call_ms", "host_us", "bound_share",
+             "l2", "lost_ms_bed", "lost_ms_capstone", "bound_share_bed",
+             "bound_share_capstone", "small_ms", "small_shape", "buckets")},
          **{x: report[name][x] for x in (
              "repeat_ms", "repeat_bound_ms", "waves", "selfstats_ms",
-             "selfstats_plain_ms", "selfstats_bound_ms", "selfstats_shape")
+             "selfstats_plain_ms", "selfstats_bound_ms", "selfstats_shape",
+             "selfstats")
             if x in report[name]}}
         for name in kernels.NAMES]}))
     from vapor_tpu_torch.engine.kernels.roofline import card_line

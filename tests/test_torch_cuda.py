@@ -1,5 +1,6 @@
 """vapor_tpu_torch's CUDA kernels against their plain PyTorch versions
-(the window refiner's self-stats rows through hist included), the fused
+(the window refiner's self-stats rows through hist included), each
+kernel's device time apart from host work within its call time, the fused
 engine on the card against the same engine on the CPU, its rows split
 over two streams of the card against one launch, the batching
 backend on the card against the unbatched one, the device window
@@ -9,11 +10,14 @@ three goldens of fixtures/golden/ through the CLI on the card.
 Needs a CUDA card and nvcc: each test skips without one.  Run on the
 card with  python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from vapor_tpu_torch.engine import kernels
+from vapor_tpu_torch.engine.kernels import timing
 from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD
 from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
                                           fused_batch_local, intercept_z,
@@ -329,3 +333,33 @@ def test_goldens_on_card(cuda, backend):
     assert got["bed_del_11"]["launches"]["moment2"] > 0
     assert got["ins_melt"]["launches"]["moment"] > 0
     assert got["svelter_basic"]["launches"]["left_hist"] > 0
+
+
+@pytest.mark.parametrize("H,R", [(1536, 2560), (12544, 12544)])
+def test_device_time_within_call_time(cuda, H, R):
+    """timing.device_ms, a call's device work apart from host work (the
+    wrapper's fill and the kernel from its C entry point), is at most the
+    call's time with host work (call_ms), for each kernel at a small and a
+    large bucket, B=20.  Tolerance 5%: where the device work outlasts the
+    host work both times are the same device work, and two windows of it
+    differ by run-to-run noise."""
+    haps, reads, rlens, ms = random_rows(H, R, 20, seed=H + R, ms=(0, 23))
+    h, r, rl, m, _ = batch_from_numpy(haps, reads, rlens, ms, 0, cuda)
+    codes = (*row_codes(h, r, rl, 10), m, rl, 10)
+    h_d, h_a, _ = kernels.hist(*codes)
+    kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    kd50 = kept_table(h_d, 10, 50, True)
+    ka50 = kept_table(kernels.left_hist(*codes, kd50), 10, 50, True)
+    found, z = intercept_z(kernels.kept_hist(*codes, kd, ka), H)
+    z = torch.where(found, z + 2 * m, 0).to(torch.int32)
+    rest = {"hist": (), "left_hist": (kd50,), "kept_hist": (kd, ka),
+            "moment": (kd50, ka50, True), "moment2": (kd, ka, kd50, ka50),
+            "rdd_moment": (kd, ka, z)}
+    for name, tail in rest.items():
+        args = (*codes, *tail)
+        call = functools.partial(getattr(kernels, name), *args)
+        device, fill = timing.device_ms([call, functools.partial(
+            getattr(kernels, name), *timing.rolled(args))])
+        called = timing.call_ms(call, 5)
+        assert 0 < fill < device <= 1.05 * called, (name, device, called)
+        assert timing.host_us([call]) > 0

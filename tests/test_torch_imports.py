@@ -55,6 +55,7 @@ def test_no_file_imports_jax_or_vapor_tpu():
             "scripts/capstone_scale_torch.py",
             "vapor_tpu_torch/sim/goldens.py",
             "vapor_tpu_torch/engine/kernels/roofline.py",
+            "vapor_tpu_torch/engine/kernels/timing.py",
             "scripts/cli_parity_torch.py",
             "scripts/e2e_pipeline_bench_torch.py",
             "scripts/scale_run_torch.py",
@@ -79,6 +80,7 @@ def test_import_loads_neither():
             "vapor_tpu_torch.sim.corpus, vapor_tpu_torch.sim.worklists, "
             "vapor_tpu_torch.sim.goldens, "
             "vapor_tpu_torch.engine.kernels.roofline, "
+            "vapor_tpu_torch.engine.kernels.timing, "
             "vapor_tpu_torch.engine.batching, "
             "vapor_tpu_torch.engine.window_device, "
             "vapor_tpu_torch.orchestrate, vapor_tpu_torch.io.tabix, "

@@ -169,3 +169,23 @@ def test_cli_bytes_do_not_change_with_the_device_list(tmp_path,
             outs.append(fh.read())
     assert outs[0] == outs[1] == outs[2]
     assert b"DEL" in outs[0] and outs[0].count(b"\n") == 4
+
+
+@pytest.mark.parametrize("env,cards", [
+    ({}, [0, 1]),                                   # one process: both
+    ({"WORLD_SIZE": "2"}, [1]),                     # a torchrun rank
+    ({"WORLD_SIZE": "1", "LOCAL_WORLD_SIZE": "4"}, [1]),   # a scatter shard
+])
+def test_one_card_per_process(monkeypatch, env, cards):
+    """A process that is one of several (a torchrun rank, a scatter shard)
+    splits its rows over its own card only; a process alone on the host
+    splits over every card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for name in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "VAPOR_MESH",
+                 "VAPOR_MESH_DEVICES"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert pmesh.mesh_devices(torch.device("cuda", 1)) == [
+        torch.device("cuda", i) for i in cards]
+    assert pmesh.mesh_devices(CPU) == []

@@ -34,6 +34,30 @@ def test_initialize_standalone(monkeypatch):
     assert tmh.rank_device("cpu") == "cpu"
 
 
+@pytest.mark.parametrize("env,several", [
+    ({}, False), ({"WORLD_SIZE": "1"}, False), ({"WORLD_SIZE": "2"}, True),
+    ({"LOCAL_WORLD_SIZE": "1"}, False), ({"LOCAL_WORLD_SIZE": "3"}, True)])
+def test_rank_device_takes_one_card_per_process(monkeypatch, env, several):
+    """On 2 (patched) cards, local ranks 0-3 take cards 0, 1, 0, 1; a
+    process is one of several under torchrun's WORLD_SIZE > 1 or a
+    scatter shard's LOCAL_WORLD_SIZE > 1.  Without a card "cuda" stays
+    "cuda", which the backend refuses."""
+    import torch
+    for name in DIST_ENV + ("LOCAL_WORLD_SIZE",):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert tmh.one_of_several() is several
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    got = []
+    for rank in range(4):
+        monkeypatch.setenv("LOCAL_RANK", str(rank))
+        got.append(tmh.rank_device("cuda"))
+    assert got == ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert tmh.rank_device("cuda") == "cuda"
+
+
 def test_shard_worklist_contig_granular():
     events = [(f"chr{c}", i) for c in (1, 2, 3, 4) for i in range(3)]
     shards = _shards(tmh, events, 2)

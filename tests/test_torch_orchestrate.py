@@ -170,3 +170,45 @@ def test_scatter_cli_matches_single_run_and_traces(case):
                                                        "shards"))
                     if f.endswith(".out.vapor"))
     assert shards == ["chr1.out.vapor", "chr2.out.vapor", "chr3.out.vapor"]
+
+
+def test_scatter_shards_take_one_card_each(tmp_path, monkeypatch):
+    """4 shards on 2 (patched) cards: shard n, in launch order, runs on
+    card n % 2 and is marked as one of several, so it splits no rows
+    over the other card.  The commands are built, not run."""
+    import torch
+    from vapor_tpu_torch.parallel import mesh, multihost
+    bed = tmp_path / "calls.bed"
+    bed.write_text("".join(f"chr{c}\t1000\t1400\tSV{c}\tDEL\n"
+                           for c in (2, 10, 1, 3)))
+    shards = torch_orch.split_by_contig(str(bed), str(tmp_path / "work"))
+    jobs = torch_orch.shard_jobs("bed", shards, "ref.fa", "reads.bam",
+                                 str(tmp_path / "work"), device="cuda")
+    assert [cmd[cmd.index("--sv-input") + 1] for cmd, _, _ in jobs] == [
+        shards[c] for c in ("chr1", "chr2", "chr3", "chr10")]
+    assert all(cmd[cmd.index("--device") + 1] == "cuda"
+               for cmd, _, _ in jobs)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cards = []
+    for _, env, _ in jobs:
+        for name in ("WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            monkeypatch.delenv(name, raising=False)
+        for name in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+            monkeypatch.setenv(name, env[name])
+        assert multihost.one_of_several()
+        card = torch.device(multihost.rank_device("cuda"))
+        assert mesh.mesh_devices(card) == [card]
+        cards.append(card.index)
+    assert cards == [0, 1, 0, 1]
+
+
+def test_scatter_shard_without_a_card_exits_nonzero(case, monkeypatch):
+    """A shard's environment with --device cuda and no card: the CLI
+    exits 2 and falls back to nothing."""
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert main(["bed", "--sv-input", case["bed"], "--reference",
+                 case["fasta"], "--pacbio-input", case["bam"],
+                 "--output-path", os.path.join(case["dir"], "nocard"),
+                 "--output-file", os.path.join(case["dir"], "nocard.vapor"),
+                 "--device", "cuda", "--no-figures"]) == 2

@@ -3,7 +3,8 @@ CLI parity check passes goldens, the pipeline-depth bench gives the same
 bytes at every depth as vapor_tpu's numpy run, the scale run's tally
 keeps the JAX script's qs > 0.2 rule, the scaling curve's balance equals
 vapor_tpu's shard assignment, the engine profile's rows and stages match
-the JAX profile's, and no script runs without a card unless --device cpu
+the JAX profile's, the card placement run's scatter and 4 ranks give the
+plain run's bytes, and no script runs without a card unless --device cpu
 is given.  All comparisons are exact."""
 import os
 
@@ -14,6 +15,7 @@ from scripts_path import add_scripts_path
 
 add_scripts_path()
 
+import card_placement_torch  # noqa: E402
 import cli_parity_torch  # noqa: E402
 import e2e_pipeline_bench_torch  # noqa: E402
 import profile_e2e_torch  # noqa: E402
@@ -23,7 +25,8 @@ import scaling_curve_torch  # noqa: E402
 import scaling_sim_torch  # noqa: E402
 from vapor_tpu_torch.sim import goldens  # noqa: E402
 
-SCRIPTS = {"cli_parity_torch": cli_parity_torch,
+SCRIPTS = {"card_placement_torch": card_placement_torch,
+           "cli_parity_torch": cli_parity_torch,
            "e2e_pipeline_bench_torch": e2e_pipeline_bench_torch,
            "scale_run_torch": scale_run_torch,
            "scaling_sim_torch": scaling_sim_torch,
@@ -142,6 +145,23 @@ def test_profile_engine_stages_on_cpu(monkeypatch):
         full = stages[f"full_{n}"]
         assert full["operations"] > hist["operations"] + \
             stages["codes"]["operations"]
+
+
+def test_card_placement_runs_equal_the_plain_run(tmp_path, monkeypatch):
+    """Scatter --jobs 4 and 4 gloo ranks on the CPU, through the same
+    PYTHONPATH hook that reports a process's cards on the card: the
+    plain run's bytes; no process touches CUDA."""
+    import json
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    out = str(tmp_path / "placement.json")
+    assert card_placement_torch.main(["--device", "cpu", "--reps", "1",
+                                      "--out", out]) == 0
+    with open(out) as fh:
+        report = json.load(fh)
+    assert set(report) == {"tree", "device", "plain", "scatter0", "ranks0"}
+    assert report["scatter0"]["equal"] and report["ranks0"]["equal"]
+    assert not any(report[x]["processes"] for x in ("plain", "scatter0",
+                                                     "ranks0"))
 
 
 @pytest.mark.parametrize("name", sorted(SCRIPTS))

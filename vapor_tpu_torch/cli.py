@@ -7,7 +7,8 @@ and ``--backend {torch,torch-nobatch,torch-v1,numpy}``.  Scale-out:
 
 * ``scatter`` splits the worklist by contig and runs one
   ``python -m vapor_tpu_torch`` process per contig (``--jobs`` at a
-  time, on the same backend and device), then merges (orchestrate.py);
+  time, on the same backend and device; shard n on ``cuda:{n % cards}``),
+  then merges (orchestrate.py);
 * under torchrun (WORLD_SIZE > 1) each rank joins a gloo process group,
   scores its contig-granular shard on ``cuda:{LOCAL_RANK % cards}``,
   writes ``<output>.shard<rank>`` and rank 0 writes the merged output
@@ -460,13 +461,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     # multi-process execution: under torchrun (WORLD_SIZE > 1) join the
     # gloo process group, take a contig-granular worklist shard on this
     # rank's card, and merge result rows by an allgather at the end (the
-    # WDL scatter + ConcatVaPoR pattern, in-job).  No-op otherwise.
-    from .parallel.multihost import finalize, initialize, rank_device
+    # WDL scatter + ConcatVaPoR pattern, in-job).  A scatter shard takes
+    # its card the same way.  No-op otherwise.
+    from .parallel.multihost import (finalize, initialize, one_of_several,
+                                     rank_device)
     pid, nproc = initialize()
     args.dist = None
     if nproc > 1:
         args.shard_index, args.num_shards = pid, nproc
         args.dist = (pid, nproc)
+    if one_of_several():
         args.device = rank_device(args.device)
     try:
         return _run(args)

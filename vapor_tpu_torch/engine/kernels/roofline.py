@@ -9,7 +9,7 @@ INT32 is the rate that applies.
 from __future__ import annotations
 
 import subprocess
-from typing import Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 # Peak rates of one H100 SXM at the 700 W limit: HBM bytes/s (NVIDIA data
 # sheet), and 32-bit integer operations/s, 132 SMs x 64 INT32 lanes x the
@@ -60,3 +60,17 @@ def kernel_work(name: str, codes, hap_lens: Sequence[int], outs,
                 for n, m, rl in zip(hap_lens, ms.tolist(), rlens.tolist()))
     ops = cells * 2 + hits * (lanes - 1 + HIT_OPS[name])
     return tensor_bytes((ch, cf, cd, ms, rlens, *tables, *outs)), ops
+
+
+def lost_ms(launch_shapes: Mapping[tuple, int], device_ms: Mapping,
+            bound_ms: Mapping) -> Dict[Tuple[str, str], float]:
+    """Launch-weighted device time over the bound, by (kernel, route):
+    the sum over the (name, route, H, R) keys of launch_shapes (as
+    kernels.LAUNCH_SHAPES counts them) of launches x (device_ms[key] -
+    bound_ms[key]).  A launched key with no time raises KeyError."""
+    lost: Dict[Tuple[str, str], float] = {}
+    for key, n in launch_shapes.items():
+        name, route = key[:2]
+        lost[name, route] = lost.get((name, route), 0.0) + \
+            n * (device_ms[key] - bound_ms[key])
+    return lost

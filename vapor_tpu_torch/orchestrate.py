@@ -16,7 +16,7 @@ import os
 import re
 import subprocess
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def split_by_contig(sv_input: str, out_dir: str) -> Dict[str, str]:
@@ -96,6 +96,35 @@ def merge_outputs(shard_outputs: Sequence[str], out_path: str,
             fo.write(text)
 
 
+def shard_jobs(mode: str, shards: Dict[str, str], reference: str,
+               bam_in: str, work: str, backend: str = "torch",
+               device: str = "cuda", extra_args: Sequence[str] = ()
+               ) -> List[Tuple[List[str], Dict[str, str], str]]:
+    """(command, environment, output file) of each shard process, one per
+    contig of `shards` (contig -> its worklist file), in launch order
+    (contig version order).  Shard n gets torchrun's LOCAL_RANK = n and
+    LOCAL_WORLD_SIZE = the shard count: the CLI then runs it on card
+    n % cards (parallel.multihost.rank_device) and keeps its rows there
+    (parallel.mesh), so that concurrent shards spread over the cards
+    instead of each splitting over all of them."""
+    jobs = []
+    items = sorted(shards.items(), key=lambda kv: _version_key(kv[0]))
+    for n, (contig, shard_input) in enumerate(items):
+        out = shard_input + ".vapor" if mode == "vcf" \
+            else os.path.join(work, f"{contig}.out.vapor")
+        cmd = [sys.executable, "-m", "vapor_tpu_torch", mode,
+               "--sv-input", shard_input, "--reference", reference,
+               "--pacbio-input", bam_in,
+               "--output-path", os.path.join(work, f"figs_{contig}"),
+               "--output-file", out,
+               "--backend", backend, "--device", device] + \
+            list(extra_args)
+        env = dict(os.environ, LOCAL_RANK=str(n),
+                   LOCAL_WORLD_SIZE=str(len(items)))
+        jobs.append((cmd, env, out))
+    return jobs
+
+
 def run_scatter(mode: str, sv_input: str, reference: str, bam_in: str,
                 output_path: str, output_file: str,
                 jobs: int = 1, backend: str = "torch",
@@ -103,24 +132,16 @@ def run_scatter(mode: str, sv_input: str, reference: str, bam_in: str,
                 extra_args: Sequence[str] = ()) -> None:
     """Per-contig scatter of the CLI, merged into one output.  Every
     shard runs `backend` on `device` (CUDA unless the caller asks for
-    the CPU); raises when a shard fails."""
+    the CPU), one card a shard (shard_jobs); raises when a shard
+    fails."""
     work = os.path.join(output_path, "shards")
-    shards = split_by_contig(sv_input, work)
     procs: List = []
     outputs: List[str] = []
-    items = sorted(shards.items(), key=lambda kv: _version_key(kv[0]))
-    for contig, shard_input in items:
-        shard_out = shard_input + ".vapor"
-        outputs.append(shard_out if mode == "vcf"
-                       else os.path.join(work, f"{contig}.out.vapor"))
-        cmd = [sys.executable, "-m", "vapor_tpu_torch", mode,
-               "--sv-input", shard_input, "--reference", reference,
-               "--pacbio-input", bam_in,
-               "--output-path", os.path.join(work, f"figs_{contig}"),
-               "--output-file", outputs[-1],
-               "--backend", backend, "--device", device] + \
-            list(extra_args)
-        procs.append(subprocess.Popen(cmd))
+    for cmd, env, out in shard_jobs(mode, split_by_contig(sv_input, work),
+                                    reference, bam_in, work, backend,
+                                    device, extra_args):
+        outputs.append(out)
+        procs.append(subprocess.Popen(cmd, env=env))
         while len([p for p in procs if p.poll() is None]) >= jobs:
             for p in procs:
                 if p.poll() is None:

@@ -9,7 +9,10 @@ on its own card and stream, and the packed rows come back in row order.
 Per-row math is integer-exact and no row depends on another, so the
 packed rows are bit-identical at any device count
 (tests/test_torch_mesh.py).  No collective is needed: the JAX package's
-per-call ``psum`` of the dot totals is never read.
+per-call ``psum`` of the dot totals is never read.  Only a process that
+is alone on the host splits: a torchrun rank or a scatter shard
+(parallel.multihost.one_of_several) already has a card of its own, and
+keeps its rows there.
 
 Why rows only: one row's state is a few (W,) histograms and an (H, R)
 cell walk that never leaves the card, far under one card's memory, so
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..engine.constants import HAP_PAD, READ_PAD
+from .multihost import one_of_several
 
 ROW_GROUP = 8       # fused_batch's row group: each part is a multiple
 
@@ -55,9 +59,12 @@ def device_count() -> int:
 def mesh_devices(device: torch.device) -> List[torch.device]:
     """The devices fused_batch splits the rows of tensors on `device`
     over: every card device_count() allows for CUDA tensors, none for
-    CPU tensors."""
+    CPU tensors; only `device` itself in a process that is one of
+    several (its rank's or shard's card)."""
     if device.type != "cuda":
         return []
+    if one_of_several():
+        return [device]
     return [torch.device("cuda", i) for i in range(device_count())]
 
 

@@ -11,7 +11,9 @@ Here:
   robin by event otherwise;
 * each process scores its shard on its own card,
   ``cuda:{LOCAL_RANK % device_count}`` (``rank_device``), so several
-  ranks may share one card;
+  ranks may share one card, and splits a call's rows over that card
+  only (``one_of_several``, parallel.mesh): ranks never score on each
+  other's cards;
 * result rows are fixed-width text; the merge is either the
   orchestrator's deterministic file merge (orchestrate.merge_outputs)
   or ``allgather_rows``, an in-job gather of row blocks in rank order
@@ -54,9 +56,18 @@ def finalize() -> None:
         dist.destroy_process_group()
 
 
+def one_of_several() -> bool:
+    """Whether this process is one of several that share the host's
+    cards: a torchrun rank (WORLD_SIZE > 1), or a scatter shard, to which
+    orchestrate.run_scatter gives torchrun's LOCAL_RANK and
+    LOCAL_WORLD_SIZE (> 1) but no process group."""
+    return any(int(os.environ.get(name, "1")) > 1
+               for name in ("WORLD_SIZE", "LOCAL_WORLD_SIZE"))
+
+
 def rank_device(device: str) -> str:
-    """This rank's card for a "cuda" run, cuda:{LOCAL_RANK % cards}; any
-    other device (and a run with no card, which the backend refuses)
+    """This process's card for a "cuda" run, cuda:{LOCAL_RANK % cards};
+    any other device (and a run with no card, which the backend refuses)
     unchanged."""
     if device != "cuda":
         return device

@@ -8,15 +8,17 @@ and checks the output against the CPU and numpy-oracle runs.
     python3 chip_smoke.py [--seed N] [--reps N]
 
 Phases, each fatal on failure: 1 build (nvcc's -Xptxas=-v report:
-registers, shared memory, spills), 2 input, 3 kernel parity and timing
-(at each mode's event sizes, every kernel also on dense-hit repeat rows
-at its reported shape, with its grid's waves, and hist on the window
-refiner's self-stats row of the largest DUP alt hap; at the reported
+registers, shared memory, spills; the on-chip walk's dynamic shared
+memory), 2 input, 3 kernel parity and timing (at each mode's event
+sizes, every kernel also on dense-hit repeat rows at its reported shape,
+hist by both routes, with its grid's waves, and hist's self-stats route
+on the window refiner's row of the largest DUP alt hap; at the reported
 shapes also the device time apart from host work, the host time of a
 wrapper call and the bound share; after phase 9, the same at every
 (route, H, R) that phase 4's bed run and phase 7c's capstone run
-launched, on their rows, and each kernel's launch-weighted time over
-its bound in each run), 4 end to end on
+launched, on their rows, each kernel's launch-weighted time over its
+bound in each run, and the floor split of the on-chip walk's routes at
+the capstone's most-launched shape), 4 end to end on
 cuda through the default backend (cross-event batching, the device
 window refiner) and through torch-nobatch, byte-equal (bed, then vcf),
 5 CPU and oracle cross-check of the default backend, 6 scale-out (6a the
@@ -103,6 +105,9 @@ CORPUS_CONTIGS, CORPUS_LEN, CORPUS_SEED = 4, 400000, 20260821
 CAPSTONE_CONTIGS = 4
 # phase 8a: the kernels that the goldens of fixtures/golden/ launch
 GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2")
+# the on-chip walk's (kernel, route)s (csrc/walk.cuh), whose device time
+# at the capstone's most-launched shape phase 3 splits (floor_split)
+FLOOR_OF = (("hist", "score"), ("hist", "selfstats"), ("rdd_moment", "score"))
 
 
 # every process this script starts, each in a session of its own, so that
@@ -162,19 +167,38 @@ def _require(ok: bool, what: str) -> None:
 
 
 def print_ptxas(name: str, log: str) -> None:
-    """One line per instance of the kernel (its lane count) from nvcc's
-    -Xptxas=-v report: registers, static shared memory, spills."""
+    """One line per instance of each kernel function of a source (its
+    lane count) from nvcc's -Xptxas=-v report: registers, static shared
+    memory, spills."""
     for fn in log.split("Compiling entry function")[1:]:
-        lanes = re.search(r"_kernelILi(\d)E", fn)
+        lanes = re.search(r"_Z\d+(\w+)_kernelILi(\d)E", fn)
         regs = re.search(r"Used (\d+) registers", fn)
         smem = re.search(r"(\d+) bytes smem", fn)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", fn)
-        print(f"ptxas {name}<{lanes.group(1) if lanes else '?'}>: "
+        print(f"ptxas {lanes.group(1) if lanes else name}"
+              f"<{lanes.group(2) if lanes else '?'}>: "
               f"{regs.group(1) if regs else '?'} registers, "
               f"{smem.group(1) if smem else 0} bytes smem, spill stores "
               f"{spill.group(1) if spill else '?'}, loads "
               f"{spill.group(2) if spill else '?'}", flush=True)
+
+
+def tile_smem() -> None:
+    """Phase 1's line for each on-chip walk route (FLOOR_OF) and lane
+    count: the dynamic shared memory a block takes at the shortest and
+    the tallest strip its grid plan picks (B=1, H=R=512; B=20,
+    H=R=16384), and the blocks an SM then holds."""
+    import torch
+    from vapor_tpu_torch.engine.kernels import build
+    dev = torch.cuda.current_device()
+    for name, route in FLOOR_OF:
+        for lanes in (2, 3, 4, 5):
+            got = [build.grid_info(name, B, H, H, lanes, dev, route=route)
+                   for B, H in ((1, 512), (20, 16384))]
+            print(f"smem {name} {route} <{lanes}>: " + "; ".join(
+                f"strip {strip}: {smem} bytes dynamic, {per_sm} blocks "
+                f"per SM" for _, per_sm, _, strip, smem in got), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -219,13 +243,21 @@ def _hap_lens(haps) -> list:
     return [int(n) for n in (haps != HAP_PAD).sum(1)]
 
 
+def _wrapper(name: str, route: str) -> str:
+    """The wrapper that launches a kernel's route (kernels.ROUTES; a tree
+    from before hist's self-stats entry point has none, and its hist
+    takes the route as a keyword)."""
+    from vapor_tpu_torch.engine import kernels
+    return getattr(kernels, "ROUTES", {}).get((name, route), name)
+
+
 def _measure(name, args, hap_lens, hits, reps, label, kwargs=None,
-             timed=False):
-    """Holds one kernel against its plain version (every output integer
-    equal) on the wrapper's arguments `args` (codes, then tables and
-    flags), times the kernel call by call, host work included (call_ms),
-    and the plain version's parity call (plain_ms), and prints one line.
-    With `timed`, also its device time apart from host work
+             timed=False, route="score"):
+    """Holds one kernel's route against its plain version (every output
+    integer equal) on the wrapper's arguments `args` (codes, then tables
+    and flags), times the kernel call by call, host work included
+    (call_ms), and the plain version's parity call (plain_ms), and prints
+    one line.  With `timed`, also its device time apart from host work
     (engine/kernels/timing.py): device_ms (fill + kernel from the C entry
     point, taking turns over args and the same rows rolled by one),
     fill_ms, host_us a wrapper call, and bound_share = bound / device_ms.
@@ -234,8 +266,9 @@ def _measure(name, args, hap_lens, hits, reps, label, kwargs=None,
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.kernels import roofline, timing
     kwargs = kwargs or {}
-    kern = functools.partial(getattr(kernels, name), *args, **kwargs)
-    plain = functools.partial(getattr(kernels, f"{name}_plain"), *args,
+    wrapper = _wrapper(name, route)
+    kern = functools.partial(getattr(kernels, wrapper), *args, **kwargs)
+    plain = functools.partial(getattr(kernels, f"{wrapper}_plain"), *args,
                               **{x: v for x, v in kwargs.items()
                                  if x != "route"})
     got = kern()
@@ -258,13 +291,13 @@ def _measure(name, args, hap_lens, hits, reps, label, kwargs=None,
            "shape": f"B={B} H={H} R={R} k={k}"}
     tables = [a for a in args[6:] if isinstance(a, torch.Tensor)]
     out["bound_ms"], out["bound_by"] = roofline.bound(*roofline.kernel_work(
-        name, codes, hap_lens, got, tables, hits))
+        wrapper, codes, hap_lens, got, tables, hits))
     line = (f"parity {name:10s} {label} B={B:2d} H={H:5d} R={R:5d} k={k}: "
             f"equal; kernel {out['call_ms']:.4f} ms, plain "
             f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms, "
             f"{hits} hits")
     if timed:
-        second = functools.partial(getattr(kernels, name),
+        second = functools.partial(getattr(kernels, wrapper),
                                    *timing.rolled(args), **kwargs)
         out["device_ms"], out["fill_ms"] = timing.device_ms([kern, second])
         out["host_us"] = timing.host_us([kern, second])
@@ -410,6 +443,12 @@ def repeat_parity(seed: int, reps: int, report) -> None:
         report[name].update(
             max_abs_err=max(report[name]["max_abs_err"], got["max_abs_err"]),
             repeat_ms=got["call_ms"], repeat_bound_ms=got["bound_ms"])
+        if name == "hist" and hasattr(kernels, "hist_self"):
+            # the self-stats route reduces the same walk's hits
+            got = _measure(name, codes, _hap_lens(batch[0]), hits, reps,
+                           "repeat", route="selfstats")
+            report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                              got["max_abs_err"])
 
 
 def walk_waves(report) -> None:
@@ -420,12 +459,13 @@ def walk_waves(report) -> None:
     from vapor_tpu_torch.engine.kernels import build
     for name in build.GRID_POINTS:
         H, R = REPEAT_AT[name]
-        blocks, per_sm, sms, strip = build.grid_info(
+        blocks, per_sm, sms, strip, smem = build.grid_info(
             name, 20, H, R, 2, torch.cuda.current_device())
         waves = blocks / (per_sm * sms)
         print(f"grid {name}: H={H} R={R}: {blocks} blocks of {strip} hap "
               f"rows, {per_sm} resident per SM x {sms} SMs: {waves:.2f} "
-              f"waves", flush=True)
+              f"waves; {smem} bytes of dynamic shared memory a block",
+              flush=True)
         report[name]["waves"] = waves
 
 
@@ -458,8 +498,8 @@ def selfstats_parity(fa, events, reps: int, report) -> None:
         c = (*row_codes(h, reads, n, k), torch.zeros_like(n), n, k)
         hits = int(kernels.hist_plain(*c)[2][:, :2].sum())
         got = _measure("hist", c, [len(codes)], hits, reps,
-                       f"self-stats length {len(codes)}",
-                       {"route": "selfstats"}, timed=k == 10)
+                       f"self-stats length {len(codes)}", timed=k == 10,
+                       route="selfstats")
         report["hist"]["max_abs_err"] = max(report["hist"]["max_abs_err"],
                                             got["max_abs_err"])
         if k == 10:
@@ -502,11 +542,12 @@ def bucket_parity(runs, reps: int, report) -> None:
         got = _measure(name, args, timing.hap_lens(args[0], args[5]), hits,
                        reps, f"{route} bucket ({src} rows; launches bed "
                        f"{n['bed']}, capstone {n['capstone']})", kwargs,
-                       timed=True)
+                       timed=True, route=route)
         device[key], bound[key] = got["device_ms"], got["bound_ms"]
         B = args[0].shape[0]
-        blocks, per_sm, sms, _ = build.grid_info(
-            name, B, H, R, args[0].shape[1], torch.cuda.current_device())
+        blocks, per_sm, sms = build.grid_info(
+            name, B, H, R, args[0].shape[1], torch.cuda.current_device(),
+            route=route)[:3]
         entry = report[name]
         entry["max_abs_err"] = max(entry["max_abs_err"], got["max_abs_err"])
         entry.setdefault("buckets", []).append({
@@ -536,6 +577,66 @@ def bucket_parity(runs, reps: int, report) -> None:
                   flush=True)
     print(f"phase 3 buckets: {len(device)} shapes, each equal to its plain "
           f"version", flush=True)
+
+
+def floor_split(runs, report) -> None:
+    """Where a launch's device time goes at the capstone's most-launched
+    shape of each route in FLOOR_OF, on that shape's rows (B=20; B=1 for
+    self-stats rows), from engine/kernels/timing.py windows (two batches,
+    the rows and the rows rolled by one): `path` the device work of whole
+    wrapper calls as the main path issues them, `entry` the C entry point
+    alone (timing.device_ms less the wrapper's fill), `empty` the entry
+    point on rows with no eligible cell (rlens 0: every block exits at
+    once) and `nohit` on read codes drawn at random (next to no rare
+    path).  The split: launch = empty (with the memset, where the entry
+    point zeroes the outputs itself), staging and fast path = nohit -
+    empty (staging, zeroing, the fast path, the flush scan, the tail
+    wave), rare path = entry - nohit (the candidates' lanes, the
+    visitors, the flush of the bins they filled), fill = path - entry
+    (the wrapper's own fill ops)."""
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.kernels import timing
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shapes = runs["capstone"].shapes
+    for name, route in FLOOR_OF:
+        key = max((x for x in shapes if x[:2] == (name, route)),
+                  key=lambda x: (shapes[x], x))
+        args, kwargs = runs["capstone"].args[key]
+        args = timing.tile_rows(args, 1 if route == "selfstats" else 20)
+        fn = getattr(kernels, _wrapper(name, route))
+
+        def calls(a):
+            return [functools.partial(fn, *a, **kwargs),
+                    functools.partial(fn, *timing.rolled(a), **kwargs)]
+
+        def entry(a):
+            total, fill = timing.device_ms(calls(a))
+            return total - fill
+
+        nohit, empty = list(args), list(args)
+        for x in (1, 2):
+            nohit[x] = torch.randint(-2 ** 31, 2 ** 31 - 1, args[x].shape,
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+        empty[4] = torch.zeros_like(args[4])
+        got = {"path": timing._window_ms(calls(args), 50),
+               "entry": entry(args), "nohit": entry(nohit),
+               "empty": entry(empty)}
+        split = {"H": key[2], "R": key[3], "B": args[0].shape[0],
+                 "launches_capstone": shapes[key],
+                 "path_ms": got["path"], "fill_ms": got["path"] - got["entry"],
+                 "launch_ms": got["empty"],
+                 "staging_ms": got["nohit"] - got["empty"],
+                 "rare_ms": got["entry"] - got["nohit"]}
+        print(f"phase 3 floor split {name} {route} B={split['B']} H={key[2]} "
+              f"R={key[3]} ({shapes[key]} capstone launches): device "
+              f"{got['path']:.4f} ms a call = fill {split['fill_ms']:.4f} + "
+              f"launch {split['launch_ms']:.4f} + staging and fast path "
+              f"{split['staging_ms']:.4f} + rare path "
+              f"{split['rare_ms']:.4f}", flush=True)
+        (report[name] if route == "score"
+         else report[name]["selfstats"])["floor"] = split
 
 
 # ---------------------------------------------------------------------------
@@ -1422,6 +1523,7 @@ def main() -> int:
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         print_ptxas(name, log)
+    tile_smem()
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1568,6 +1670,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         bucket_parity(runs, args.reps, report)
+        floor_split(runs, report)
         print(f"phase 3 buckets: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
@@ -1588,7 +1691,7 @@ def main() -> int:
          **{x: report[name][x] for x in (
              "repeat_ms", "repeat_bound_ms", "waves", "selfstats_ms",
              "selfstats_plain_ms", "selfstats_bound_ms", "selfstats_shape",
-             "selfstats")
+             "selfstats", "floor")
             if x in report[name]}}
         for name in kernels.NAMES]}))
     from vapor_tpu_torch.engine.kernels.roofline import card_line

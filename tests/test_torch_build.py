@@ -74,6 +74,18 @@ def test_kernel_source_walks_one_header_and_defines_its_symbols(name):
         assert re.search(rf'extern "C" int {symbol}\(', src), symbol
 
 
+@pytest.mark.parametrize("name, route", sorted(build.ROUTE_POINTS))
+def test_route_entry_points_live_in_their_kernels_source(name, route):
+    """A route with an entry point of its own (hist's self-stats rows)
+    defines it, and its grid query, in its kernel's source, so that the
+    one library build makes of the source binds both."""
+    with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
+        src = fh.read()
+    symbol = build.ROUTE_POINTS[name, route][0]
+    for x in (symbol, f"{symbol}_grid"):
+        assert re.search(rf'extern "C" int {x}\(', src), x
+
+
 def test_csrc_has_one_walk_header():
     """walk.cuh is the only header in csrc/, and every kernel has a grid
     query."""

@@ -211,9 +211,10 @@ def _self_rows(H, B, seed):
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_self_stats_route_equals_plain(cuda, H, k):
     """The window refiner's self-stats rows (the hap as its own read,
-    m = 0, rlen = length, H = R) through the hist kernel against its
-    plain version, B = 1 and a full flush of the (H, window) group, and
-    the device reduction against the same reduction of the plain
+    m = 0, rlen = length, H = R) through the hist kernel's score route
+    against its plain version, B = 1 and a full flush of the (H, window)
+    group, and through its self-stats route (self_stats_rows) against
+    that route's plain version and the same reduction of the plain
     histogram."""
     from vapor_tpu_torch.engine.batching import _row_cap
     from vapor_tpu_torch.engine.window_device import self_stats_rows
@@ -231,6 +232,7 @@ def test_self_stats_route_equals_plain(cuda, H, k):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
         rows = self_stats_rows(h, n, k)
+        assert torch.equal(rows, kernels.hist_self_plain(*codes))
         assert kernels.LAUNCHES["hist"] == launched + 2
         assert kernels.LAUNCH_SHAPES["hist", "selfstats", H, H] == routed + 1
         w_d = want[0].long()
@@ -339,10 +341,11 @@ def test_goldens_on_card(cuda, backend):
 def test_device_time_within_call_time(cuda, H, R):
     """timing.device_ms, a call's device work apart from host work (the
     wrapper's fill and the kernel from its C entry point), is at most the
-    call's time with host work (call_ms), for each kernel at a small and a
-    large bucket, B=20.  Tolerance 5%: where the device work outlasts the
-    host work both times are the same device work, and two windows of it
-    differ by run-to-run noise."""
+    call's time with host work (call_ms), for each kernel route at a small
+    and a large bucket, B=20; the fill is 0 where the entry point zeroes
+    the outputs itself (kernels.ZEROED_BY_ENTRY).  Tolerance 5%: where
+    the device work outlasts the host work both times are the same device
+    work, and two windows of it differ by run-to-run noise."""
     haps, reads, rlens, ms = random_rows(H, R, 20, seed=H + R, ms=(0, 23))
     h, r, rl, m, _ = batch_from_numpy(haps, reads, rlens, ms, 0, cuda)
     codes = (*row_codes(h, r, rl, 10), m, rl, 10)
@@ -355,11 +358,15 @@ def test_device_time_within_call_time(cuda, H, R):
     rest = {"hist": (), "left_hist": (kd50,), "kept_hist": (kd, ka),
             "moment": (kd50, ka50, True), "moment2": (kd, ka, kd50, ka50),
             "rdd_moment": (kd, ka, z)}
-    for name, tail in rest.items():
-        args = (*codes, *tail)
-        call = functools.partial(getattr(kernels, name), *args)
+    for (name, route), wrapper in kernels.ROUTES.items():
+        args = (*codes, *rest[name])
+        call = functools.partial(getattr(kernels, wrapper), *args)
         device, fill = timing.device_ms([call, functools.partial(
-            getattr(kernels, name), *timing.rolled(args))])
+            getattr(kernels, wrapper), *timing.rolled(args))])
         called = timing.call_ms(call, 5)
-        assert 0 < fill < device <= 1.05 * called, (name, device, called)
+        if (name, route) in kernels.ZEROED_BY_ENTRY:
+            assert fill == 0, (wrapper, fill)
+        else:
+            assert fill > 0, (wrapper, fill)
+        assert fill < device <= 1.05 * called, (wrapper, device, called)
         assert timing.host_us([call]) > 0

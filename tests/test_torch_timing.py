@@ -55,25 +55,30 @@ def _batch(H, R, B, seed):
 def test_capture_keeps_each_shapes_first_call_at_k10():
     """fused_batch in mode del at k = 20, then k = 10, and the refiner's
     self-stats rows: one record per (name, route, H, R), at k = 10 where
-    a call had it, copies of the arguments; the wrappers are restored
-    after the block."""
-    real = {n: getattr(kernels, n) for n in kernels.NAMES}
+    a call had it, copies of the arguments, which replay through the
+    route's wrapper (kernels.ROUTES); the wrappers are restored after
+    the block."""
+    wrappers = kernels.ROUTES.values()
+    real = {n: getattr(kernels, n) for n in wrappers}
     haps, reads, rlens, ms, _ = _batch(256, 192, 10, seed=3)
+    lengths = torch.tensor([200, 180, 190], dtype=torch.int32)
     store = {}
     with timing.capture(store):
         for k_idx in (1, 0):
             fused.fused_batch(haps, reads, rlens, ms, k_idx, 256, 192, "del")
-        window_device.self_stats_rows(haps[:3], torch.tensor(
-            [200, 180, 190], dtype=torch.int32), 20)
-    assert {n: getattr(kernels, n) for n in kernels.NAMES} == real
+        selfstats = window_device.self_stats_rows(haps[:3], lengths, 20)
+    assert {n: getattr(kernels, n) for n in wrappers} == real
     assert set(store) == {("hist", "score", 256, 192),
                           ("left_hist", "score", 256, 192),
                           ("moment2", "score", 256, 192),
                           ("hist", "selfstats", 256, 256)}
     for (name, route, H, R), (args, kwargs) in store.items():
         assert args[5] == (20 if route == "selfstats" else 10)
-        assert kwargs.get("route", "score") == route
+        assert kwargs == {}
         assert args[0].shape[2] == H and args[1].shape[2] == R
+    args, kwargs = store["hist", "selfstats", 256, 256]
+    replay = getattr(kernels, kernels.ROUTES["hist", "selfstats"])
+    assert torch.equal(replay(*args, **kwargs), selfstats)
     args = store["hist", "score", 256, 192][0]
     assert args[0].shape[0] == 16          # 10 rows + 6 pad rows
     assert not any(a is b for a, b in zip(args, fused.row_codes(

@@ -1,8 +1,8 @@
 """vapor_tpu_torch's device window refiner on the CPU against vapor_tpu:
-the self-stats rows through ``kernels.hist`` (plain version) equal the
-JAX ``_self_stats`` and ``_self_stats_rows_packed`` exactly, and the
-refiner's windows equal ``window_size_refine`` and vapor_tpu's
-``DeviceWindowRefiner``."""
+the self-stats rows through ``kernels.hist_self`` (hist's self-stats
+route, plain version) equal the JAX ``_self_stats`` and
+``_self_stats_rows_packed`` exactly, and the refiner's windows equal
+``window_size_refine`` and vapor_tpu's ``DeviceWindowRefiner``."""
 import random
 
 import jax.numpy as jnp
@@ -16,7 +16,9 @@ from vapor_tpu.engine.window import window_size_refine
 from vapor_tpu.engine.window_device import DeviceWindowRefiner as JaxRefiner
 from vapor_tpu.engine.window_device import (_RC_PAD, _self_stats,
                                             _self_stats_rows_packed)
-from vapor_tpu_torch.engine.constants import HAP_PAD, bucket_for
+from vapor_tpu_torch.engine import kernels
+from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD, bucket_for
+from vapor_tpu_torch.engine.fused import row_codes
 from vapor_tpu_torch.engine.window_device import (BAND_STATS,
                                                   DeviceWindowRefiner,
                                                   self_stats_rows)
@@ -64,6 +66,64 @@ def test_self_stats_rows_match_jax(k):
         assert got[0].tolist() == want.tolist(), (len(seq), k)
         nonzero += int(want[0]) > 0
     assert nonzero >= 4 - (k >= 30)     # the 25 bp hap is empty there
+
+
+def _hap_rows(case: str, H: int):
+    """The sequences, their (B, H) hap rows and their lengths, from a
+    numpy seed: "mixed" lengths from 30 to H - 1, a "tandem" 2-bp repeat
+    (every other diagonal hits), and a hap that "fills" its bucket
+    (length H)."""
+    rng = np.random.default_rng(len(case) + H)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if case == "mixed":
+        lengths = [H - 1, 30, H // 2 + 7, 3 * H // 4, 101]
+        seqs = [acgt[rng.integers(0, 4, n)] for n in lengths]
+    elif case == "tandem":
+        seqs = [np.resize(np.frombuffer(b"AC", np.uint8), H - 9),
+                np.concatenate([acgt[rng.integers(0, 4, 60)],
+                                np.resize(np.frombuffer(b"GT", np.uint8),
+                                          H // 2)])]
+    else:
+        seqs = [acgt[rng.integers(0, 4, H)]]
+    seqs = [bytes(x).decode() for x in seqs]
+    return (seqs, np.stack([_hap(x, H) for x in seqs]),
+            np.array([len(x) for x in seqs], np.int32))
+
+
+@pytest.mark.parametrize("case", ["mixed", "tandem", "full"])
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_self_stats_plain_matches_jax(case, k):
+    """hist's self-stats route, plain version (kernels.hist_self on CPU
+    tensors: [total, diag, below] summed from each row's hits), against
+    the JAX _self_stats of each hap and _self_stats_rows_packed of the
+    batch, exactly; and against the score route's h_d reduced the way
+    the refiner read it before the route had an entry point of its
+    own."""
+    H = 512
+    seqs, haps, lengths = _hap_rows(case, H)
+    h, n = torch.from_numpy(haps), torch.from_numpy(lengths)
+    reads = torch.where(torch.arange(H) < n[:, None].long(), h,
+                        torch.full_like(h, READ_PAD))
+    codes = (*row_codes(h, reads, n, k), torch.zeros_like(n), n, k)
+    got = kernels.hist_self(*codes)
+    assert torch.equal(got, self_stats_rows(h, n, k))
+    want = np.asarray(_self_stats_rows_packed(
+        jnp.asarray(pack_nibbles(haps)), jnp.asarray(lengths),
+        jnp.int32(k // 10 - 1), H=H))
+    assert got.tolist() == want.tolist()
+    for b, seq in enumerate(seqs):
+        rc = np.full(H, _RC_PAD, np.uint8)
+        rc[:len(seq)] = joracle.encode_comp(seq)[::-1]
+        one = np.asarray(_self_stats(jnp.asarray(haps[b]), jnp.asarray(rc),
+                                     jnp.int32(len(seq)),
+                                     jnp.int32(k // 10 - 1), H=H))
+        assert got[b].tolist() == one.tolist(), (case, k, b)
+    h_d = kernels.hist_plain(*codes)[0].long()
+    assert torch.equal(got, torch.stack(
+        [h_d.sum(1), h_d[:, H], h_d[:, :H].sum(1)], 1))
+    assert (got[:, 1].numpy() >= (lengths - k + 1).clip(0)).all()  # diagonal
+    if case == "tandem":
+        assert (got[:, 2] > got[:, 1]).all()     # repeats fill "below"
 
 
 @pytest.mark.parametrize("k", [10, 40])

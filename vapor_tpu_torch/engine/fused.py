@@ -272,7 +272,8 @@ def fused_rows(haps, reads, rlens, ms, k: int, scorer: str,
                                haps.shape[1])
         z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
         mom = kernels.rdd_moment(*codes, kd, ka, z)
-    return h_d, h_a, torch.cat([scal.long(), mom], 1)
+    return h_d, h_a, torch.cat([kernels.hist_scal(scal, haps.shape[1]), mom],
+                               1)
 
 
 def batch_from_numpy(haps: np.ndarray, reads: np.ndarray,

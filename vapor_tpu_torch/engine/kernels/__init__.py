@@ -17,14 +17,16 @@ hit (0..2).  Keep tables are (B, W) bool over the bins j - i + H
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the
 launch in ``LAUNCHES``, and by (name, route, H, R) in ``LAUNCH_SHAPES``
-(route "score", or "selfstats" for ``hist``'s window-refiner rows); for
-CPU tensors it runs the plain PyTorch version of the same function,
-which lives here too.  Plain versions run on any device;
-``PLAIN_CUDA_CALLS`` counts the calls they get with CUDA tensors, which
-only the on-card comparison of a kernel with its plain version makes.
+(``ROUTES``: route "score", or "selfstats" for ``hist_self``, the window
+refiner's rows through hist's self-stats entry point); for CPU tensors it
+runs the plain PyTorch version of the same function, which lives here
+too.  Plain versions run on any device; ``PLAIN_CUDA_CALLS`` counts the
+calls they get with CUDA tensors, which only the on-card comparison of a
+kernel with its plain version makes.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -34,6 +36,13 @@ from ..constants import hist_width
 from . import build
 
 NAMES = ("hist", "left_hist", "kept_hist", "moment", "moment2", "rdd_moment")
+# (kernel, route) -> the wrapper that launches it
+ROUTES = {**{(name, "score"): name for name in NAMES},
+          ("hist", "selfstats"): "hist_self"}
+# the (kernel, route)s whose C entry point zeroes the outputs itself (one
+# cudaMemsetAsync on the launch's stream): their wrappers fill nothing
+ZEROED_BY_ENTRY = frozenset({("hist", "score"), ("hist", "selfstats"),
+                             ("rdd_moment", "score")})
 LAUNCHES: Dict[str, int] = dict.fromkeys(NAMES, 0)
 LAUNCH_SHAPES: Counter = Counter()
 PLAIN_CUDA_CALLS: Dict[str, int] = dict.fromkeys(NAMES, 0)
@@ -50,54 +59,77 @@ def reset_counts() -> None:
 # argument checks and launch
 # ---------------------------------------------------------------------------
 
+_LANES = {10: 2, 20: 3, 30: 4, 40: 5}      # k -> code lanes, ceil(k / 8)
+
+
 def _check(ch, cf, cd, ms, rlens, k: int,
            tables: Sequence[torch.Tensor] = (),
            z: Optional[torch.Tensor] = None) -> Tuple[int, int, int, int]:
     """Validates one batch (and the per-row intercepts z, where given);
     returns (B, lanes, H, R)."""
-    if k not in (10, 20, 30, 40):
+    lanes = _LANES.get(k)
+    if lanes is None:
         raise ValueError(f"k must be 10, 20, 30 or 40, got {k}")
     if ch.dim() != 3:
         raise ValueError(f"ch must be (B, lanes, H), got {tuple(ch.shape)}")
-    B, lanes, H = ch.shape
+    B, got, H = ch.shape
     R = cf.shape[-1]
-    if lanes != -(-k // 8):
-        raise ValueError(f"k={k} needs {-(-k // 8)} code lanes, got {lanes}")
-    W = hist_width(H, R)
+    if got != lanes:
+        raise ValueError(f"k={k} needs {lanes} code lanes, got {got}")
+    device = ch.device
     want = [("ch", ch, torch.int32, (B, lanes, H)),
             ("cf", cf, torch.int32, (B, lanes, R)),
             ("cd", cd, torch.int32, (B, lanes, R)),
             ("ms", ms, torch.int32, (B,)),
             ("rlens", rlens, torch.int32, (B,))]
-    want += [(f"table{n}", t, torch.bool, (B, W))
-             for n, t in enumerate(tables)]
+    if tables:
+        W = hist_width(H, R)
+        want += [(f"table{n}", t, torch.bool, (B, W))
+                 for n, t in enumerate(tables)]
     if z is not None:
         want.append(("z", z, torch.int32, (B,)))
     for name, t, dtype, shape in want:
-        if t.dtype != dtype or tuple(t.shape) != shape:
+        if t.dtype != dtype or t.shape != shape:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if t.device != ch.device:
-            raise ValueError(f"{name} is on {t.device}, ch on {ch.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, ch on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if ch.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {ch.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
     return B, lanes, H, R
 
 
-def _launch(name: str, device: torch.device, *args,
+# (kernel, route) -> its C entry point, once bound
+_ENTRY: Dict[Tuple[str, str], object] = {}
+
+
+def _launch(name: str, ch: torch.Tensor, *args,
             route: str = "score") -> None:
-    fn = build.entry_point(name)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    err = fn(*ptrs, index, torch.cuda.current_stream(device).cuda_stream)
+    """Launches the kernel's route on ch's card, on the current stream:
+    the C entry point gets ch, then args = (cf, cd, ms, rlens, B, H, R,
+    ...), tensors as their data pointers."""
+    fn = _ENTRY.get((name, route))
+    if fn is None:
+        fn = _ENTRY[name, route] = build.entry_point(name, route)
+    index = ch.get_device()
+    # the raw stream handle, as torch.cuda.current_stream(index)
+    # .cuda_stream gives it, without building a Stream object
+    err = fn(ch.data_ptr(),
+             *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+               for a in args],
+             index, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    LAUNCH_SHAPES[name, route, args[0].shape[2], args[1].shape[2]] += 1
+    LAUNCH_SHAPES[name, route, args[5], args[6]] += 1
+
+
+def _plain(ch: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version: for CPU tensors only; a
+    CUDA tensor launches the kernel or raises."""
+    return ch.device.type == "cpu"
 
 
 def _note_plain(name: str, t: torch.Tensor) -> None:
@@ -136,15 +168,25 @@ def hist_plain(ch, cf, cd, ms, rlens, k: int):
     W = hist_width(H, cf.shape[-1])
     h_d = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
     h_a = torch.zeros_like(h_d)
-    scal = torch.tensor([[0, 0, H + 1, -1]] * B, dtype=torch.int32,
-                        device=ch.device)
+    scal = torch.zeros((B, 4), dtype=torch.int32, device=ch.device)
     for b, (i, j, f, r) in _rows(ch, cf, cd, ms, rlens, k):
         mult = (f + r).int()
         h_d[b].index_add_(0, j - i + H, mult)
         h_a[b].index_add_(0, j + i, mult)
         if i.numel():
-            scal[b] = torch.stack([f.sum(), r.sum(), i.min(), i.max()])
+            scal[b] = torch.stack([f.sum(), r.sum(), i.min() - (H + 1),
+                                   i.max() + 1])
     return h_d, h_a, scal
+
+
+def hist_self_plain(ch, cf, cd, ms, rlens, k: int):
+    _note_plain("hist", ch)
+    out = torch.zeros((ch.shape[0], 3), dtype=torch.int64, device=ch.device)
+    for b, (i, j, f, r) in _rows(ch, cf, cd, ms, rlens, k):
+        mult = f + r
+        out[b] = torch.stack([mult.sum(), mult[j == i].sum(),
+                              mult[j < i].sum()])
+    return out
 
 
 def left_hist_plain(ch, cf, cd, ms, rlens, k: int, keep_d):
@@ -226,36 +268,58 @@ def rdd_moment_plain(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a, z):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def hist(ch, cf, cd, ms, rlens, k: int, route: str = "score"):
+def hist(ch, cf, cd, ms, rlens, k: int):
     """-> h_d (B, W) int32 over j - i + H, h_a (B, W) int32 over j + i,
-    each summing hit multiplicity, and scal (B, 4) int32 =
-    [forward hits, reverse hits, first hit row (H + 1 if none), last hit
-    row (-1 if none)].  `route` names the caller in LAUNCH_SHAPES."""
+    each summing hit multiplicity, and scal (B, 4) int32 = [forward hits,
+    reverse hits, first hit row - (H + 1), last hit row + 1], all 0 where
+    a row has no hit (hist_scal decodes it): views of one buffer, which
+    the C entry point zeroes."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k)
-    if ch.device.type == "cpu":
+    if _plain(ch):
         return hist_plain(ch, cf, cd, ms, rlens, k)
-    # both histograms zeroed by one fill; scal set on the card, since a
-    # copy from pageable host memory would make the call wait for it
-    h_d, h_a = torch.zeros((2, B, hist_width(H, R)), dtype=torch.int32,
-                           device=ch.device)
-    scal = torch.zeros((B, 4), dtype=torch.int32, device=ch.device)
-    scal[:, 2] = H + 1
-    scal[:, 3] = -1
-    W = h_d.shape[1]
-    _launch("hist", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes, k,
-            W, h_d, h_a, scal, route=route)
-    return h_d, h_a, scal
+    W = hist_width(H, R)
+    out = torch.empty((2 * W + 4) * B, dtype=torch.int32, device=ch.device)
+    _launch("hist", ch, cf, cd, ms, rlens, B, H, R, lanes, k, W, out)
+    return (out.as_strided((B, W), (W, 1)),
+            out.as_strided((B, W), (W, 1), B * W),
+            out.as_strided((B, 4), (4, 1), 2 * B * W))
+
+
+@functools.lru_cache(maxsize=None)
+def _scal_offset(H: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor([0, 0, H + 1, -1], dtype=torch.int64, device=device)
+
+
+def hist_scal(scal: torch.Tensor, H: int) -> torch.Tensor:
+    """hist's (B, 4) scal -> (B, 4) int64 [forward hits, reverse hits,
+    first hit row (H + 1 if none), last hit row (-1 if none)], in one
+    add (the widening to int64 the caller would make anyway)."""
+    return scal + _scal_offset(H, scal.device)
+
+
+def hist_self(ch, cf, cd, ms, rlens, k: int):
+    """hist's self-stats route, for rows whose read is their own hap (the
+    window refiner's): -> (B, 3) int64 [total, diag, below], the hit
+    multiplicity summed over every cell, over j == i and over j < i: the
+    sum of hist's h_d row, its bin H and its bins below H."""
+    B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k)
+    if _plain(ch):
+        return hist_self_plain(ch, cf, cd, ms, rlens, k)
+    out = torch.empty((B, 3), dtype=torch.int64, device=ch.device)
+    _launch("hist", ch, cf, cd, ms, rlens, B, H, R, lanes, k, out,
+            route="selfstats")
+    return out
 
 
 def left_hist(ch, cf, cd, ms, rlens, k: int, keep_d):
     """-> (B, W) int32 histogram over j + i of the hit multiplicity of
     cells whose bin j - i + H is not set in keep_d."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d,))
-    if ch.device.type == "cpu":
+    if _plain(ch):
         return left_hist_plain(ch, cf, cd, ms, rlens, k, keep_d)
     W = hist_width(H, R)
     h_a = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
-    _launch("left_hist", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
+    _launch("left_hist", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, W, keep_d, h_a)
     return h_a
 
@@ -264,11 +328,11 @@ def kept_hist(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a):
     """-> (B, W) int32 histogram over j - i + H of the hit multiplicity of
     cells kept by keep_d | keep_a: the intercept fit's input."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a))
-    if ch.device.type == "cpu":
+    if _plain(ch):
         return kept_hist_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a)
     W = hist_width(H, R)
     h_d = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
-    _launch("kept_hist", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
+    _launch("kept_hist", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, W, keep_d, keep_a, h_d)
     return h_d
 
@@ -278,11 +342,11 @@ def moment(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a,
     """-> (B, 3) int64 [count, sum |d|, within-10% count (0 unless
     want_w10)] over cells kept by keep_d | keep_a, d = j - (i - m)."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a))
-    if ch.device.type == "cpu":
+    if _plain(ch):
         return moment_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a,
                             want_w10)
     mom = torch.zeros((B, 3), dtype=torch.int64, device=ch.device)
-    _launch("moment", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes, k,
+    _launch("moment", ch, cf, cd, ms, rlens, B, H, R, lanes, k,
             hist_width(H, R), keep_d, keep_a, int(want_w10), mom)
     return mom
 
@@ -293,11 +357,11 @@ def moment2(ch, cf, cd, ms, rlens, k: int, keep_d1, keep_a1, keep_d2,
     moment(keep_d2, keep_a2, want_w10=True), in one pass."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k,
                             (keep_d1, keep_a1, keep_d2, keep_a2))
-    if ch.device.type == "cpu":
+    if _plain(ch):
         return moment2_plain(ch, cf, cd, ms, rlens, k, keep_d1, keep_a1,
                              keep_d2, keep_a2)
     mom = torch.zeros((B, 6), dtype=torch.int64, device=ch.device)
-    _launch("moment2", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
+    _launch("moment2", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, hist_width(H, R), keep_d1, keep_a1, keep_d2, keep_a2, mom)
     return mom
 
@@ -309,11 +373,11 @@ def rdd_moment(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a, z):
     10 |z - 2d| > den, den = |2(i - m) + z| (|2(i - m) + z + 2| where
     that is 0); sel pos and sel neg sum the positive and negative parts
     of z - 2d over the selected cells.  Every sum is weighted by the
-    cell's hit multiplicity."""
+    cell's hit multiplicity.  The C entry point zeroes mom."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a), z)
-    if ch.device.type == "cpu":
+    if _plain(ch):
         return rdd_moment_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a, z)
-    mom = torch.zeros((B, 6), dtype=torch.int64, device=ch.device)
-    _launch("rdd_moment", ch.device, ch, cf, cd, ms, rlens, B, H, R, lanes,
+    mom = torch.empty((B, 6), dtype=torch.int64, device=ch.device)
+    _launch("rdd_moment", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, hist_width(H, R), keep_d, keep_a, z, mom)
     return mom

@@ -27,15 +27,21 @@ _CODES = [_P] * 5 + [_I] * 5          # ch cf cd ms rlens, B H R lanes k
 _TAIL = [_I, _P]                      # device index, stream
 # kernel -> (C entry point, argtypes)
 ENTRY_POINTS = {
-    "hist": ("vt_hist", _CODES + [_I, _P, _P, _P] + _TAIL),
+    "hist": ("vt_hist", _CODES + [_I, _P] + _TAIL),
     "left_hist": ("vt_left_hist", _CODES + [_I, _P, _P] + _TAIL),
     "kept_hist": ("vt_kept_hist", _CODES + [_I, _P, _P, _P] + _TAIL),
     "moment": ("vt_moment", _CODES + [_I, _P, _P, _I, _P] + _TAIL),
     "moment2": ("vt_moment2", _CODES + [_I, _P, _P, _P, _P, _P] + _TAIL),
     "rdd_moment": ("vt_rdd_moment", _CODES + [_I, _P, _P, _P, _P] + _TAIL),
 }
+# (kernel, route) -> (C entry point, argtypes) of a route that has an
+# entry point of its own in its kernel's source
+ROUTE_POINTS = {
+    ("hist", "selfstats"): ("vt_hist_self", _CODES + [_P] + _TAIL),
+}
 # kernel (every one walks csrc/walk.cuh's strips) -> C function that
-# reports its grid: (B, H, R, lanes, device index, int[4] out)
+# reports its grid: (B, H, R, lanes, device index, int[5] out); a route
+# of ROUTE_POINTS reports its own through <its entry point>_grid
 GRID_POINTS = {name: f"vt_{name}_grid" for name in ENTRY_POINTS}
 
 _lock = threading.Lock()
@@ -102,19 +108,25 @@ def _function(name: str, symbol: str, argtypes):
     return fn
 
 
-def entry_point(name: str):
-    """The kernel's C launch function, building its library if needed."""
-    return _function(name, *ENTRY_POINTS[name])
+def entry_point(name: str, route: str = "score"):
+    """The C launch function of the kernel's route, building its library
+    if needed."""
+    return _function(name, *ROUTE_POINTS.get((name, route),
+                                             ENTRY_POINTS[name]))
 
 
 def grid_info(name: str, B: int, H: int, R: int, lanes: int,
-              device: int = 0) -> Tuple[int, int, int, int]:
-    """(blocks, blocks resident per SM, SMs, hap rows a block) of a
-    strip-walk kernel's launch on B rows of H x R cells on card
-    `device`."""
-    fn = _function(name, GRID_POINTS[name], [_I] * 5 + [_P])
-    out = (ctypes.c_int * 4)()
+              device: int = 0, route: str = "score"
+              ) -> Tuple[int, int, int, int, int]:
+    """(blocks, blocks resident per SM, SMs, hap rows a block, dynamic
+    shared bytes a block: 0 for a kernel that uses static shared memory
+    only) of the launch of a kernel's route on B rows of H x R cells on
+    card `device`."""
+    symbol = GRID_POINTS[name] if route == "score" else \
+        f"{ROUTE_POINTS[name, route][0]}_grid"
+    fn = _function(name, symbol, [_I] * 5 + [_P])
+    out = (ctypes.c_int * 5)()
     err = fn(B, H, R, lanes, device, out)
     if err:
         raise RuntimeError(f"{name} grid query failed: CUDA error {err}")
-    return out[0], out[1], out[2], out[3]
+    return tuple(out)

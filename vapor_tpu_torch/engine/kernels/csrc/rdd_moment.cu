@@ -9,38 +9,53 @@
 // Output row mom[b] = [sum of mult, sum of mult * |d|, 0, sum of mult
 // over selected cells, sum of mult * max(val, 0) and of
 // mult * max(-val, 0) over selected cells], mult being the cell's hit
-// multiplicity (0..2).  The wrapper zeroes mom.
+// multiplicity (0..2).  The entry point zeroes mom with one
+// cudaMemsetAsync on the launch's stream.
 //
 // Bound on the H100: integer ALU: two lane-0 compares per eligible
 // cell; the keep-table reads, the moment and the selection work run on
 // hits only.
 //
-// Design: walk.cuh's register-blocked strip walk; the keep tables are
-// read and the 64-bit moment and selection block computed on its rare
-// path only.  Sums are 64-bit (the selection sums pass 2^31 at the
-// largest buckets), reduced over each warp and added with one atomic
-// per warp and output, so the result is bitwise deterministic.
+// Design: walk.cuh's on-chip walk.  Each block also stages its strip's
+// bins of both keep tables (strip + TCOLS - 1 bytes each) in shared
+// memory, so the rare path, which computes the 64-bit moment and
+// selection block, reads no global memory.  Sums are 64-bit (the
+// selection sums pass 2^31 at the largest buckets), reduced over each
+// warp and added with one atomic per warp and output, so the result is
+// bitwise deterministic.
 #include "walk.cuh"
 
 using namespace vtw;
 
 template <int LANES>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rdd_moment_kernel(
+__global__ void __launch_bounds__(THREADS, TILE_BLOCKS) rdd_moment_kernel(
     const unsigned* ch, const unsigned* cf, const unsigned* cd,
     const int* ms, const int* rlens, int H, int R, int k, int W,
     const uint8_t* keep_d, const uint8_t* keep_a, const int* zs,
     unsigned long long* mom, int strip) {
-  __shared__ __align__(16) unsigned sh[LANES][MAX_STRIP];
+  extern __shared__ __align__(16) unsigned smem[];
+  const Tile<LANES> t = tile<LANES>(smem, strip);
   Strip s;
-  if (!strip_bounds(s, ms, rlens, H, R, k, strip)) return;
-  stage(s, sh, ch, cf, cd, H, R);
+  if (!strip_bounds_tile(s, ms, rlens, H, R, k, strip)) return;
+  // local d-bin x is j - i + H = x + d0, local a-bin x is j + i = x + a0;
+  // bins outside the row's W hold no cell of the strip
+  const int span = strip + TCOLS - 1;
+  const int d0 = s.j0 - s.s0 - (strip - 1) + H, a0 = s.j0 + s.s0;
+  uint8_t* kd = (uint8_t*)t.own;
+  uint8_t* ka = kd + span;
+  const uint8_t* row_d = keep_d + (size_t)s.b * W;
+  const uint8_t* row_a = keep_a + (size_t)s.b * W;
+  for (int x = threadIdx.x; x < span; x += THREADS) {
+    kd[x] = d0 + x >= 0 && d0 + x < W ? row_d[d0 + x] : 0;
+    ka[x] = a0 + x < W ? row_a[a0 + x] : 0;
+  }
+  stage_tile(s, t, ch, cf, cd, H, R);
 
-  const uint8_t* kd = keep_d + (size_t)s.b * W;
-  const uint8_t* ka = keep_a + (size_t)s.b * W;
   const int m = ms[s.b], z = zs[s.b];
   unsigned long long cnt = 0, sum_absd = 0, sel = 0, pos = 0, neg = 0;
-  walk(s, sh, cf, cd, H, R, [&](int i, int j, int hf, int hr) {
-    if (kd[j - i + H] | ka[j + i]) {
+  walk_tile(s, t, H, [&](int i, int j, int hf, int hr) {
+    const int di = i - s.s0, dj = j - s.j0;
+    if (kd[dj - di + strip - 1] | ka[dj + di]) {
       const int mult = hf + hr, ip = i - m, d = j - ip;
       cnt += mult;
       sum_absd += (unsigned long long)(mult * abs(d));
@@ -61,6 +76,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) rdd_moment_kernel(
   warp_add(out + 5, neg);
 }
 
+// strip-local tables: one byte a bin of each keep table
+constexpr int RDD_UNIT = 2;
+
 extern "C" int vt_rdd_moment(const void* ch, const void* cf, const void* cd,
                              const void* ms, const void* rlens, int B,
                              int H, int R, int lanes, int k, int W,
@@ -68,13 +86,16 @@ extern "C" int vt_rdd_moment(const void* ch, const void* cf, const void* cd,
                              const void* zs, void* mom, int device,
                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(mom, 0, 6 * (size_t)B * sizeof(long long),
+                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  VTW_LAUNCH_BY_LANES(lanes, rdd_moment_kernel, B, H, R, device,
-                      (cudaStream_t)stream, (const unsigned*)ch,
-                      (const unsigned*)cf, (const unsigned*)cd,
-                      (const int*)ms, (const int*)rlens, H, R, k, W,
-                      (const uint8_t*)keep_d, (const uint8_t*)keep_a,
-                      (const int*)zs, (unsigned long long*)mom);
+  VTW_LAUNCH_TILE(lanes, RDD_UNIT, rdd_moment_kernel, B, H, R, device,
+                  (cudaStream_t)stream, (const unsigned*)ch,
+                  (const unsigned*)cf, (const unsigned*)cd,
+                  (const int*)ms, (const int*)rlens, H, R, k, W,
+                  (const uint8_t*)keep_d, (const uint8_t*)keep_a,
+                  (const int*)zs, (unsigned long long*)mom);
   return (int)cudaGetLastError();
 }
 
@@ -84,5 +105,6 @@ extern "C" int vt_rdd_moment_grid(int B, int H, int R, int lanes,
   const void* by_lanes[] = {
       (const void*)rdd_moment_kernel<2>, (const void*)rdd_moment_kernel<3>,
       (const void*)rdd_moment_kernel<4>, (const void*)rdd_moment_kernel<5>};
-  return grid_info(by_lanes[lanes - 2], B, H, R, device, out);
+  return grid_info_tile(by_lanes[lanes - 2], B, H, R, lanes, RDD_UNIT,
+                        device, out);
 }

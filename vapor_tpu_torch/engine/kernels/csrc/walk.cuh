@@ -1,6 +1,8 @@
 // Register-blocked tile walk of the six dot-plot kernels (hist,
 // left_hist, kept_hist, rdd_moment, moment, moment2), laid out for the
-// H100.
+// H100: left_hist, kept_hist, moment and moment2 walk the strips below;
+// hist (both routes) and rdd_moment the on-chip walk at the end of the
+// file, which shares the fast path, the masks and the Strip.
 //
 // A (read, haplotype) row is an H x R grid of cells: cell (i, j) of row b
 // pairs hap k-mer i with read k-mer j, is eligible when i >= m (the
@@ -52,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace vtw {
 
@@ -290,6 +294,244 @@ inline int grid_info(const void* kernel, int B, int H, int R, int device,
   return (int)err;
 }
 
+// ---------------------------------------------------------------------------
+// The on-chip walk: hist (both routes) and rdd_moment.
+//
+// At the main path's small buckets (H, R <= 2048, where the capstone
+// launches every kernel) a launch of the walk above spends little of its
+// time on the fast path: the launch, the wrapper's fill ops, the staging
+// and, on the warp that holds the read's diagonal, the rare path on every
+// group, whose other lanes came from global memory one candidate at a
+// time (chip_smoke.py's floor split; PERF.md section 6).  The on-chip
+// walk keeps the fast path (group_fires) and the sentinels, and changes:
+// * staging: the block also stages lanes 1..LANES-1 of its TCOLS read
+//   columns, both strands, in dynamic shared memory beside the strip's
+//   hap codes, so the rare path reads shared memory only;
+// * columns: each lane's COLS columns are 32 apart (strip_bounds_tile),
+//   so the diagonal's cells of a group fall on 4 lanes, one each;
+// * the grid (plan_tile): the shortest strip whose grid fits in one wave
+//   at TILE_BLOCKS blocks an SM;
+// * outputs: the C entry point zeroes them with one cudaMemsetAsync on
+//   the launch's stream, so the wrapper issues no fill op of its own.
+// ---------------------------------------------------------------------------
+
+// blocks per SM the on-chip walk's launch bounds ask for: 48 registers a
+// thread, none spilled (chip_smoke.py phase 1)
+constexpr int TILE_BLOCKS = 5;
+
+// Shared-memory words of a tile before the kernel's own tables: hap
+// codes [LANES][strip], then read columns [LANES - 1][2][TCOLS] (lanes 1
+// and up; forward, then reverse).
+__host__ __device__ inline size_t tile_words(int lanes, int strip) {
+  return (size_t)lanes * strip + (size_t)(lanes - 1) * 2 * TCOLS;
+}
+
+// Dynamic shared memory of a block: the tile, then `unit` bytes for each
+// of the strip's strip + TCOLS - 1 diagonal bins (the kernel's own
+// strip-local tables), rounded up to 16 bytes.
+inline size_t tile_bytes(int lanes, int strip, int unit) {
+  const size_t own = (size_t)unit * (strip + TCOLS - 1);
+  return 4 * tile_words(lanes, strip) + ((own + 15) & ~(size_t)15);
+}
+
+// The on-chip walk's launch on B rows of H x R cells on card `device`:
+// strip, grid and dynamic shared memory.  The strip is the shortest, in
+// steps of MIN_STRIP rows, whose grid runs in one wave (its blocks no
+// more than the SMs hold at once: the `per_sm_regs` a kernel's registers
+// allow, or fewer where shared memory runs out); MAX_STRIP where none
+// does.  A block's time grows with its strip (the warp that holds the
+// read's diagonal takes the rare path on every group of it), so a grid
+// that fits in one wave gains nothing from taller strips and loses a
+// whole block's time to a second wave.
+inline cudaError_t plan_tile(int B, int H, int R, int lanes, int unit,
+                             int per_sm_regs, int device, int& strip,
+                             dim3& grid, size_t& smem) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (err != cudaSuccess) return err;
+  const long cols = (R + TCOLS - 1) / TCOLS;
+  for (strip = MIN_STRIP;; strip += MIN_STRIP) {
+    smem = tile_bytes(lanes, strip, unit);
+    // the card keeps 1 KB of each block's shared memory for itself
+    const long resident =
+        std::min<long>(per_sm_regs, per_sm / (long)(smem + 1024));
+    const long blocks = cols * ((H + strip - 1) / strip) * B;
+    if (strip == MAX_STRIP || blocks <= resident * sms) break;
+  }
+  grid = dim3((unsigned)cols, (H + strip - 1) / strip, B);
+  return cudaSuccess;
+}
+
+// The blocks of `kernel` an SM holds at once as far as its registers
+// and threads go (no dynamic shared memory).
+inline cudaError_t regs_resident(const void* kernel, int& resident) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                       THREADS, 0);
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB
+// only after this call, on the current device).
+inline cudaError_t allow_smem(const void* kernel, size_t smem) {
+  return smem <= 48 * 1024
+             ? cudaSuccess
+             : cudaFuncSetAttribute(kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem);
+}
+
+// A block's tile in dynamic shared memory; `own` is where the kernel's
+// strip-local tables start.
+template <int LANES>
+struct Tile {
+  unsigned* hap;  // [LANES][strip]
+  unsigned* col;  // [LANES - 1][2][TCOLS]
+  void* own;
+  int strip;
+};
+
+template <int LANES>
+__device__ __forceinline__ Tile<LANES> tile(unsigned* smem, int strip) {
+  Tile<LANES> t;
+  t.hap = smem;
+  t.col = smem + LANES * strip;
+  t.own = smem + tile_words(LANES, strip);
+  t.strip = strip;
+  return t;
+}
+
+// strip_bounds() for the on-chip walk, whose lanes interleave their
+// columns: column c of lane l of warp w is j0 + 128 w + 32 c + l, so that
+// the read's diagonal, which crosses a group's 4 rows on 4 neighbouring
+// columns, lands on 4 lanes, whose rare paths run side by side, not on
+// the 1-2 that hold 4 neighbouring columns each.
+__device__ __forceinline__ bool strip_bounds_tile(Strip& s, const int* ms,
+                                                  const int* rlens, int H,
+                                                  int R, int k, int strip) {
+  const bool any = strip_bounds(s, ms, rlens, H, R, k, strip);
+  s.jt = s.j0 + COLS * (int)(threadIdx.x & ~31u) + (int)(threadIdx.x & 31);
+  return any;
+}
+
+// stage() into the tile (the thread's lane-0 column codes as
+// strip_bounds_tile lays columns out), and lanes 1..LANES-1 of the
+// block's read columns of both strands (those up to j_last: no other is
+// read); syncs the block.
+template <int LANES>
+__device__ __forceinline__ void stage_tile(Strip& s, const Tile<LANES>& t,
+                                           const unsigned* ch,
+                                           const unsigned* cf,
+                                           const unsigned* cd, int H,
+                                           int R) {
+  const int row0 = GROUP * s.g_begin, row1 = GROUP * s.g_end;
+#pragma unroll
+  for (int lane = 0; lane < LANES; ++lane) {
+    const unsigned* src = ch + ((size_t)s.b * LANES + lane) * H + s.s0;
+    for (int row = row0 + (int)threadIdx.x; row < row1; row += THREADS) {
+      const int i = s.s0 + row;
+      const bool ok = i >= s.ilo && i < H;
+      t.hap[lane * t.strip + row] =
+          ok ? src[row] : (lane == 0 ? ROW_SENTINEL : 0u);
+    }
+  }
+  const size_t at = (size_t)s.b * LANES * R;
+  const int ncols = min(TCOLS, s.j_last - s.j0 + 1);
+#pragma unroll
+  for (int lane = 1; lane < LANES; ++lane) {
+    const size_t from = at + (size_t)lane * R + s.j0;
+    unsigned* fw = t.col + (2 * (lane - 1)) * TCOLS;
+    for (int x = threadIdx.x; x < ncols; x += THREADS) {
+      fw[x] = cf[from + x];
+      fw[TCOLS + x] = cd[from + x];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int j = s.jt + 32 * c;
+    const bool ok = j <= s.j_last;
+    s.f[c] = ok ? cf[at + j] : COL_SENTINEL;
+    s.r[c] = ok ? cd[at + j] : COL_SENTINEL;
+  }
+  __syncthreads();
+}
+
+// rare_group on the tile, with strip_bounds_tile's columns: every lane
+// of a candidate is read from shared memory.
+template <int LANES, class Visit>
+__device__ __forceinline__ void rare_tile(const Strip& s,
+                                          const Tile<LANES>& t, int H,
+                                          int g, Visit& visit) {
+  unsigned fm = 0, rm = 0;  // bit GROUP c + q: row q, column c matched
+#pragma unroll
+  for (int q = 0; q < GROUP; ++q) {
+    const unsigned h = t.hap[GROUP * g + q];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      fm |= (unsigned)(h == s.f[c]) << (GROUP * c + q);
+      rm |= (unsigned)(h == s.r[c]) << (GROUP * c + q);
+    }
+  }
+  for (unsigned cand = fm | rm; cand; cand &= cand - 1) {
+    const int bit = __ffs(cand) - 1;
+    const int row = GROUP * g + bit % GROUP, i = s.s0 + row;
+    const int j = s.jt + 32 * (bit / GROUP), x = j - s.j0;
+    if (i < s.ilo || i >= H || j > s.j_last) continue;
+    bool hf = (fm >> bit) & 1u, hr = (rm >> bit) & 1u;
+#pragma unroll
+    for (int lane = 1; lane < LANES; ++lane) {
+      const unsigned h = t.hap[lane * t.strip + row];
+      const unsigned* fw = t.col + (2 * (lane - 1)) * TCOLS;
+      hf &= h == fw[x];
+      hr &= h == fw[TCOLS + x];
+    }
+    if (hf || hr) visit(i, j, (int)hf, (int)hr);
+  }
+}
+
+// walk() on the tile.
+template <int LANES, class Visit>
+__device__ __forceinline__ void walk_tile(const Strip& s,
+                                          const Tile<LANES>& t, int H,
+                                          Visit&& visit) {
+  if (!s.warp_walks) return;
+  unsigned at =
+      (unsigned)__cvta_generic_to_shared(&t.hap[GROUP * s.g_begin]);
+#pragma unroll 2
+  for (int g = s.g_begin; g < s.g_end; ++g, at += GROUP * sizeof(unsigned)) {
+    if (group_fires(at, s.f, s.r)) rare_tile<LANES>(s, t, H, g, visit);
+  }
+}
+
+// Writes [blocks, blocks resident per SM, SMs, strip rows, dynamic shared
+// bytes] of an on-chip walk kernel's launch (its strip-local tables
+// `unit` bytes a bin) on B rows of H x R cells to out (int[5]).
+inline int grid_info_tile(const void* kernel, int B, int H, int R,
+                          int lanes, int unit, int device, int* out) {
+  int per_sm = 0, resident = 0, strip = 0;
+  dim3 grid;
+  size_t smem = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = regs_resident(kernel, resident);
+  if (err == cudaSuccess)
+    err = plan_tile(B, H, R, lanes, unit, resident, device, strip, grid,
+                    smem);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount,
+                                 device);
+  out[0] = (int)(grid.x * grid.y * grid.z);
+  out[1] = per_sm;
+  out[3] = strip;
+  out[4] = (int)smem;
+  return (int)err;
+}
+
 }  // namespace vtw
 
 // Instantiates KERNEL for the lane count of k (2..5 words for k = 10..40)
@@ -309,3 +551,35 @@ inline int grid_info(const void* kernel, int B, int H, int R, int device,
       default: return (int)cudaErrorInvalidValue;                          \
     }                                                                      \
   } while (0)
+
+// VTW_LAUNCH_BY_LANES for an on-chip walk kernel whose strip-local
+// tables take `unit` bytes a bin: plans the tile grid (each instance's
+// register residency asked once) and launches with its dynamic shared
+// memory.
+#define VTW_LAUNCH_TILE(lanes, unit, KERNEL, B, H, R, device, stream, ...)  \
+  do {                                                                     \
+    switch (lanes) {                                                       \
+      VTW_TILE_CASE(2, unit, KERNEL, B, H, R, device, stream, __VA_ARGS__) \
+      VTW_TILE_CASE(3, unit, KERNEL, B, H, R, device, stream, __VA_ARGS__) \
+      VTW_TILE_CASE(4, unit, KERNEL, B, H, R, device, stream, __VA_ARGS__) \
+      VTW_TILE_CASE(5, unit, KERNEL, B, H, R, device, stream, __VA_ARGS__) \
+      default: return (int)cudaErrorInvalidValue;                          \
+    }                                                                      \
+  } while (0)
+#define VTW_TILE_CASE(n, unit, KERNEL, B, H, R, device, stream, ...)       \
+  case n: {                                                                \
+    static int resident_ = 0;                                              \
+    int strip_ = 0;                                                        \
+    dim3 grid_;                                                            \
+    size_t smem_ = 0;                                                      \
+    cudaError_t e_ = resident_ ? cudaSuccess                               \
+        : vtw::regs_resident((const void*)KERNEL<n>, resident_);           \
+    if (e_ == cudaSuccess)                                                 \
+      e_ = vtw::plan_tile(B, H, R, n, unit, resident_, device, strip_,     \
+                          grid_, smem_);                                   \
+    if (e_ == cudaSuccess)                                                 \
+      e_ = vtw::allow_smem((const void*)KERNEL<n>, smem_);                 \
+    if (e_ != cudaSuccess) return (int)e_;                                 \
+    KERNEL<n><<<grid_, vtw::THREADS, smem_, stream>>>(__VA_ARGS__, strip_);\
+    break;                                                                 \
+  }

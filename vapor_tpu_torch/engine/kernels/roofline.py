@@ -17,10 +17,11 @@ from typing import Dict, Mapping, Sequence, Tuple
 # which counts 128 lanes per SM and an FMA as two operations.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# per-hit accumulations of each kernel, beside the compares: 2 per
-# eligible cell (lane 0 of both strands), and lanes - 1 more per hit
-HIT_OPS = {"hist": 4, "left_hist": 1, "kept_hist": 1, "moment": 3,
-           "moment2": 5, "rdd_moment": 5}
+# per-hit accumulations of each wrapper's kernel route, beside the
+# compares: 2 per eligible cell (lane 0 of both strands), and lanes - 1
+# more per hit
+HIT_OPS = {"hist": 4, "hist_self": 3, "left_hist": 1, "kept_hist": 1,
+           "moment": 3, "moment2": 5, "rdd_moment": 5}
 
 
 def card_line() -> str:
@@ -47,7 +48,7 @@ def tensor_bytes(tensors: Sequence) -> int:
 
 def kernel_work(name: str, codes, hap_lens: Sequence[int], outs,
                 tables, hits: int) -> Tuple[int, int]:
-    """(bytes, operations) of one call of kernel `name` on `codes` =
+    """(bytes, operations) of one call of wrapper `name` on `codes` =
     (ch, cf, cd, ms, rlens, k) with hap rows of hap_lens bytes, its
     outputs outs, its tables (keep tables, intercepts) and `hits` hit
     cells.  Cells that can hit: hap rows m..hap_len - k (a later row's

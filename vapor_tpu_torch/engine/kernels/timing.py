@@ -2,7 +2,8 @@
 wrappers, at the shapes the main path launches them at.
 
 A wrapper call is host work (argument checks, output allocation, the
-ctypes call) and device work (the outputs' zero fill, the kernel).  At
+ctypes call) and device work (the outputs' zero fill, by the wrapper or
+by the C entry point's memset, and the kernel).  At
 the main path's small buckets the two are of one size, so a call timed
 on CUDA events alone (``call_ms``) does not say which of them a kernel
 loses its time to.  Here:
@@ -45,25 +46,27 @@ def capture(store: Dict[tuple, tuple]):
     call of each (name, route, H, R) key, a copy of its arguments in
     `store` as key -> (args, kwargs); a later call at k = 10, the
     scoring and refiner k, replaces a first call at another k.  The
-    wrappers run as they do outside the block."""
-    real = {name: getattr(kernels, name) for name in kernels.NAMES}
+    wrappers (kernels.ROUTES) run as they do outside the block."""
+    real = {wrapper: getattr(kernels, wrapper)
+            for wrapper in kernels.ROUTES.values()}
 
-    def recording(name, *args, **kwargs):
+    def recording(route, wrapper, *args, **kwargs):
         ch, cf, k = args[0], args[1], args[5]
-        key = (name, kwargs.get("route", "score"), ch.shape[2], cf.shape[2])
+        key = (*route, ch.shape[2], cf.shape[2])
         held = store.get(key)
         if held is None or (held[0][5] != 10 and k == 10):
             store[key] = (tuple(a.clone() if isinstance(a, torch.Tensor)
                                 else a for a in args), dict(kwargs))
-        return real[name](*args, **kwargs)
+        return real[wrapper](*args, **kwargs)
 
-    for name in kernels.NAMES:
-        setattr(kernels, name, functools.partial(recording, name))
+    for route, wrapper in kernels.ROUTES.items():
+        setattr(kernels, wrapper, functools.partial(recording, route,
+                                                    wrapper))
     try:
         yield store
     finally:
-        for name, fn in real.items():
-            setattr(kernels, name, fn)
+        for wrapper, fn in real.items():
+            setattr(kernels, wrapper, fn)
 
 
 def tile_rows(args: Sequence, B: int) -> tuple:
@@ -99,15 +102,18 @@ def rolled(args: Sequence) -> tuple:
 
 class _Launch:
     """The launch of one wrapper call, recorded instead of made: the
-    kernel's name, the arguments `_launch` got (the same pointers), and
-    the outputs' fills: each output buffer with its initial value (None
-    for zeros), as the wrapper left it."""
+    kernel's name and route, the arguments `_launch` got (the same
+    pointers; the card's index apart), and the outputs' fills: each
+    output buffer with its
+    initial value (None for zeros), as the wrapper left it; none where
+    the C entry point zeroes the outputs itself (kernels.ZEROED_BY_ENTRY),
+    whose memset is then timed with the kernel."""
 
     def __init__(self, call: Callable):
         seen = []
 
-        def record(name, device, *args, route="score"):
-            seen.append((name, device, args))
+        def record(name, ch, *args, route="score"):
+            seen.append((name, route, ch, args))
 
         real = kernels._launch
         kernels._launch = record
@@ -119,17 +125,17 @@ class _Launch:
             raise RuntimeError(f"want one launch from the call, got "
                                f"{len(seen)}: is it a wrapper call on "
                                f"CUDA tensors?")
-        self.name, device, self.args = seen[0]
-        index = device.index if device.index is not None \
-            else torch.cuda.current_device()
+        self.name, self.route, ch, args = seen[0]
+        self.args = (ch, *args)
+        self.index = ch.get_device()
         self.pointers = [a.data_ptr() if isinstance(a, torch.Tensor)
-                         else a for a in self.args] + \
-            [index, torch.cuda.current_stream(device).cuda_stream]
+                         else a for a in self.args]
         self.fills = []
+        if (self.name, self.route) in kernels.ZEROED_BY_ENTRY:
+            return
         for out in (outs if isinstance(outs, tuple) else (outs,)):
             base = out if out._base is None else out._base
             if not any(base is b for b, _ in self.fills):
-                # hist's two histograms share one base, one fill
                 self.fills.append((base, base.clone() if base.any()
                                    else None))
 
@@ -175,25 +181,29 @@ def device_ms(calls: Sequence[Callable], n: int = 50
     consecutive calls read different memory): each call's launch is
     recorded once, with its arguments and outputs, then n steps of fill +
     C entry point (the pointers the wrapper passes) take turns over the
-    batches in one window, and n fills alone in another.  The batches are
-    small beside the card's 50 MB L2, which holds them between steps as
-    it holds the codes the engine's glue has just written on the main
-    path: L2 is warm."""
+    batches in one window, and n fills alone in another (0.0 where the
+    wrapper fills nothing: the entry point's memset is in the first).
+    The batches are small beside the card's 50 MB L2, which holds them
+    between steps as it holds the codes the engine's glue has just
+    written on the main path: L2 is warm."""
     if len(calls) < 2:
         raise ValueError("want at least two input batches")
     launches = [_Launch(call) for call in calls]
-    fn = build.entry_point(launches[0].name)
+    fn = build.entry_point(launches[0].name, launches[0].route)
+    index = launches[0].index
+    stream = torch.cuda.current_stream(index).cuda_stream
 
     def step(launch):
         launch.fill()
-        err = fn(*launch.pointers)
+        err = fn(*launch.pointers, index, stream)
         if err:
             raise RuntimeError(f"{launch.name} kernel launch failed: CUDA "
                                f"error {err}")
 
     total = _window_ms([functools.partial(step, x) for x in launches], n)
-    fill = _window_ms([x.fill for x in launches], n)
-    return total, fill
+    if not launches[0].fills:
+        return total, 0.0
+    return total, _window_ms([x.fill for x in launches], n)
 
 
 def host_us(calls: Sequence[Callable], n: int = 50) -> float:

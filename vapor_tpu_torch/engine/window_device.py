@@ -2,8 +2,9 @@
 
 The adaptive window tuner self-compares the haplotype (pyx:2030-2046);
 on haplotypes up to ~13 kb that is an O(L^2) dotplot per event.  Here
-the hap goes through the ``hist`` kernel as its own read, and only three
-integers of the diagonal histogram come back:
+the hap goes through the ``hist`` kernel's self-stats route as its own
+read, which reduces the row to three integers of its diagonal
+histogram:
 
 * total          = every hit, both strands;
 * diagonal count = bin H (i == j);
@@ -44,21 +45,19 @@ def self_stats_rows(haps: torch.Tensor, lengths: torch.Tensor, k: int
     lengths -> (B, 3) int64 [total, diag, below] of each hap against
     itself at k-mer size k, on the haps' device.
 
-    The hap is passed to ``kernels.hist`` as its own read: the read row is
-    the hap's codes followed by READ_PAD, with m = 0 and rlen = length.
-    Hap rows past length - k hold HAP_PAD symbols and read columns past
-    it are ineligible, so the pad block never self-matches; the reverse
-    strand is derive_rc_rows' complement with its READ_PAD tail, which
-    matches no HAP_PAD window either."""
-    B, H = haps.shape
-    cols = torch.arange(H, device=haps.device)
+    The hap is passed to ``kernels.hist_self`` (hist's self-stats route)
+    as its own read: the read row is the hap's codes followed by READ_PAD,
+    with m = 0 and rlen = length, and the route sums each row's hits
+    straight into the three integers.  Hap rows past length - k hold
+    HAP_PAD symbols and read columns past it are ineligible, so the pad
+    block never self-matches; the reverse strand is derive_rc_rows'
+    complement with its READ_PAD tail, which matches no HAP_PAD window
+    either."""
+    cols = torch.arange(haps.shape[1], device=haps.device)
     reads = torch.where(cols < lengths[:, None].long(), haps,
                         torch.full_like(haps, READ_PAD))
-    ms = torch.zeros_like(lengths)
-    h_d, _, _ = kernels.hist(*row_codes(haps, reads, lengths, k), ms,
-                             lengths, k, route="selfstats")
-    h_d = h_d.long()
-    return torch.stack([h_d.sum(1), h_d[:, H], h_d[:, :H].sum(1)], 1)
+    return kernels.hist_self(*row_codes(haps, reads, lengths, k),
+                             torch.zeros_like(lengths), lengths, k)
 
 
 class DeviceWindowRefiner:

@@ -107,7 +107,8 @@ CAPSTONE_CONTIGS = 4
 GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2")
 # the on-chip walk's (kernel, route)s (csrc/walk.cuh), whose device time
 # at the capstone's most-launched shape phase 3 splits (floor_split)
-FLOOR_OF = (("hist", "score"), ("hist", "selfstats"), ("rdd_moment", "score"))
+FLOOR_OF = (("hist", "score"), ("hist", "selfstats"), ("kept_hist", "score"),
+            ("moment", "score"), ("rdd_moment", "score"))
 
 
 # every process this script starts, each in a session of its own, so that

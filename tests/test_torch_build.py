@@ -1,16 +1,20 @@
-"""vapor_tpu_torch's kernel build cache and bindings and the strip walk's
-sentinels, on the CPU (no nvcc needed).
+"""vapor_tpu_torch's kernel build cache and bindings, the walks'
+bookkeeping and their sentinels, on the CPU (no nvcc needed).
 
 * build.library_path names a kernel's library by a hash of the flags,
   its source and every header in csrc/, so an edited header is never
   served from a stale library.
-* Every kernel source walks csrc/walk.cuh, the one header in csrc/, and
-  defines the C symbols that build binds, its grid query among them.
+* Every kernel source includes csrc/walk.cuh, the one header in csrc/,
+  and defines the C symbols that build binds, its grid query among them.
+* A (kernel, route) runs walk.cuh's on-chip walk exactly when its C
+  entry point zeroes the outputs (kernels.ZEROED_BY_ENTRY, so its
+  wrapper fills nothing) and chip_smoke.py splits its floor (FLOOR_OF).
 * csrc/walk.cuh masks rows and columns with sentinel code words; no
   code on the other side of a compare may hold them, or a masked cell
   would wake the walk's fast path (the rare path re-tests the bounds,
   so counts would stay exact, but slow).
 """
+import ast
 import os
 import re
 import shutil
@@ -21,7 +25,10 @@ import torch
 
 from vapor_tpu_torch.engine import fused, oracle
 from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD
+from vapor_tpu_torch.engine import kernels
 from vapor_tpu_torch.engine.kernels import build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -64,9 +71,9 @@ def test_library_path_follows_its_own_source_only(csrc):
 
 @pytest.mark.parametrize("name", sorted(build.ENTRY_POINTS))
 def test_kernel_source_walks_one_header_and_defines_its_symbols(name):
-    """Every kernel walks walk.cuh's strips and defines each C symbol
-    build binds, its launch and its grid query (nvcc and the card are
-    not needed to see either)."""
+    """Every kernel includes walk.cuh (its strip walk or its on-chip
+    walk) and defines each C symbol build binds, its launch and its grid
+    query (nvcc and the card are not needed to see either)."""
     with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
         src = fh.read()
     assert re.findall(r'#include "(\w+\.cuh)"', src) == ["walk.cuh"]
@@ -84,6 +91,50 @@ def test_route_entry_points_live_in_their_kernels_source(name, route):
     symbol = build.ROUTE_POINTS[name, route][0]
     for x in (symbol, f"{symbol}_grid"):
         assert re.search(rf'extern "C" int {x}\(', src), x
+
+
+def _c_function(src, name):
+    """The body of the C or CUDA function `name` defined in src: from its
+    name to the first closing brace at the start of a line."""
+    at = re.search(rf"\b{name}\(", src)
+    assert at, name
+    return src[at.start():src.index("\n}\n", at.start())]
+
+
+def _floor_of():
+    """chip_smoke.FLOOR_OF, read from the script's source (importing it
+    needs no card, but its literal is all this needs)."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign) and
+                [ast.unparse(t) for t in node.targets] == ["FLOOR_OF"])
+
+
+@pytest.mark.parametrize("name, route", sorted(kernels.ROUTES))
+def test_on_chip_walk_goes_with_entry_zeroing_and_a_floor_split(name,
+                                                               route):
+    """For every (kernel, route): the kernel its C entry point launches
+    calls walk_tile (the on-chip walk) exactly when the entry point
+    zeroes the outputs with cudaMemsetAsync, when the route is in
+    kernels.ZEROED_BY_ENTRY (whose wrappers fill nothing, and whose fill
+    timing._Launch skips), and when chip_smoke.py's FLOOR_OF splits its
+    floor.  A strip-walk kernel calls walk and none of the three holds."""
+    with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
+        src = fh.read()
+    symbol = build.ROUTE_POINTS.get((name, route),
+                                    build.ENTRY_POINTS[name])[0]
+    entry = _c_function(src, symbol)
+    launch = re.search(r"VTW_LAUNCH_(TILE|BY_LANES)\(\s*lanes,\s*"
+                       r"(?:\w+,\s*)?(\w+_kernel),", entry)
+    assert launch, symbol
+    body = _c_function(src, launch.group(2))
+    on_chip = "walk_tile(" in body
+    assert on_chip == (launch.group(1) == "TILE")
+    assert on_chip != bool(re.search(r"\bwalk\(", body))
+    assert on_chip == ("cudaMemsetAsync(" in entry)
+    assert on_chip == ((name, route) in kernels.ZEROED_BY_ENTRY)
+    assert on_chip == ((name, route) in _floor_of())
 
 
 def test_csrc_has_one_walk_header():

@@ -109,14 +109,15 @@ def _walk_batch(H, R, k, seed, copies):
                                         (4100, 4100, 3), (12544, 1024, 2)])
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
-    """The six kernels, all on the strip walk, against their plain
-    versions at ragged shapes and the walk's edges: hist, kept_hist and
+    """The six kernels, on both walks of csrc/walk.cuh, against their
+    plain versions at ragged shapes and the walks' edges: hist, kept_hist and
     rdd_moment; left_hist with the 50-threshold d-table; moment with the
     m1b tables and with the 50-threshold tables and w10, as modes m1b and
     w10 call it; moment2 with both sets, as mode del calls it.  On the
-    H100's 132 SMs the first shape runs on 32-row strips, the second on
-    128-row ones, the third on 1024-row ones and the fourth, a DEL-mode
-    hap taller than its reads, on 256-row ones."""
+    H100's 132 SMs the strip walk (left_hist, moment2) runs the first
+    shape on 32-row strips, the second on 128-row ones, the third on
+    1024-row ones and the fourth, a DEL-mode hap taller than its reads,
+    on 256-row ones."""
     batch = _walk_batch(H, R, k, H + R + k, copies)
     h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1, cuda)
     codes = (*row_codes(h, r, rl, k), m, rl, k)
@@ -144,6 +145,62 @@ def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
     mom2 = kernels.moment2_plain(*codes, kd, ka, kd50, ka50)
     assert torch.equal(kernels.moment2(*codes, kd, ka, kd50, ka50), mom2)
     assert int(mom2[:, 0].sum()) > 0 and int(mom2[:, 3].sum()) > 0
+
+
+def _keep_batch(H, R, B, seed):
+    """random_rows with m cycling over 31, 0 and 140, the first row's hap
+    at length H (no HAP_PAD); where B > 1, last a pad row (rlen 1, m 0)
+    as fused_batch appends."""
+    haps, reads, rlens, ms = random_rows(H, R, B, seed, ms=(31, 0, 140))
+    tail = haps[0] == HAP_PAD
+    haps[0, tail] = np.frombuffer(b"ACGT", np.uint8)[
+        np.random.default_rng(seed).integers(0, 4, int(tail.sum()))]
+    if B > 1:
+        rlens[-1], ms[-1] = 1, 0
+        reads[-1] = READ_PAD
+    return haps, reads, rlens, ms
+
+
+@pytest.mark.parametrize("B,H,R,strip", [(1, 512, 512, 32),
+                                         (20, 8192, 8192, 1024)])
+@pytest.mark.parametrize("k", [10, 20, 30, 40])
+def test_keep_kernels_on_chip_walk_equal_plain(cuda, B, H, R, strip, k):
+    """kept_hist and moment (want_w10 both ways) on the on-chip walk
+    against their plain versions, bitwise, with the m1b tables, the
+    50-threshold tables, all-set and all-clear tables and each table set
+    alone: B=1 small rows, where the grid plan picks 32-row strips, and
+    B=20 large rows, where it picks 1024-row ones (checked through
+    build.grid_info); m > 0 on most rows, a hap at length H."""
+    from vapor_tpu_torch.engine.kernels import build
+    for name in ("kept_hist", "moment"):
+        assert build.grid_info(name, B, H, R, k // 10 + 1)[3] == strip
+    haps, reads, rlens, ms = _keep_batch(H, R, B, H + R + k)
+    h, r, rl, m, _ = batch_from_numpy(haps, reads, rlens, ms, k // 10 - 1,
+                                      cuda)
+    codes = (*row_codes(h, r, rl, k), m, rl, k)
+    h_d, h_a, scal = kernels.hist_plain(*codes)
+    assert int(scal[:, :2].sum()) > 0
+    kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    kd50 = kept_table(h_d, 10, 50, True)
+    ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50, True)
+    ones, zeros = torch.ones_like(kd), torch.zeros_like(kd)
+    tables = [(kd, ka), (kd50, ka50), (ones, ones), (zeros, zeros),
+              (ones, zeros), (zeros, ones)]
+    launched = dict(kernels.LAUNCHES)
+    for keep in tables:
+        want = kernels.kept_hist_plain(*codes, *keep)
+        assert torch.equal(kernels.kept_hist(*codes, *keep), want)
+        for w10 in (False, True):
+            want = kernels.moment_plain(*codes, *keep, w10)
+            assert torch.equal(kernels.moment(*codes, *keep, w10), want)
+    assert kernels.LAUNCHES["kept_hist"] == launched["kept_hist"] + 6
+    assert kernels.LAUNCHES["moment"] == launched["moment"] + 12
+    # all-set tables keep every hit: kept_hist is hist's h_d, moment's
+    # count every hit's multiplicity
+    assert torch.equal(kernels.kept_hist(*codes, ones, ones), h_d)
+    assert torch.equal(kernels.moment(*codes, ones, ones, True)[:, 0],
+                       h_d.long().sum(1))
+    assert int(kernels.moment(*codes, zeros, zeros, True).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])

@@ -7,7 +7,7 @@ and timing.py), beside what test_torch_fused.py holds against JAX:
   ``kernels._plain`` patched and its launch recorded by ``timing._Launch``
   instead of made: the route, the arguments the C entry point gets, and
   the fills (none where the entry point zeroes the outputs itself, as
-  hist, hist_self and rdd_moment do);
+  hist, hist_self, kept_hist, moment and rdd_moment do);
 * hist's scal, whose first and last hit rows are encoded so that zero is
   the identity, through ``kernels.hist_scal`` against the JAX engine's
   FusedStats of ``_fused_batch_jit``, exactly.
@@ -137,7 +137,8 @@ def test_launch_records_route_arguments_and_fills(card_branch, wrapper):
     assert launch.pointers[:5] == [x.data_ptr() for x in CODES[:5]]
     assert launch.pointers[5:10] == [B, H, R, 2, 10]
     zeroed = (launch.name, launch.route) in kernels.ZEROED_BY_ENTRY
-    assert zeroed == (wrapper in ("hist", "hist_self", "rdd_moment"))
+    assert zeroed == (wrapper in ("hist", "hist_self", "kept_hist",
+                                  "moment", "rdd_moment"))
     if zeroed:
         assert launch.fills == []
     else:

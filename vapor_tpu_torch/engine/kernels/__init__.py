@@ -42,6 +42,7 @@ ROUTES = {**{(name, "score"): name for name in NAMES},
 # the (kernel, route)s whose C entry point zeroes the outputs itself (one
 # cudaMemsetAsync on the launch's stream): their wrappers fill nothing
 ZEROED_BY_ENTRY = frozenset({("hist", "score"), ("hist", "selfstats"),
+                             ("kept_hist", "score"), ("moment", "score"),
                              ("rdd_moment", "score")})
 LAUNCHES: Dict[str, int] = dict.fromkeys(NAMES, 0)
 LAUNCH_SHAPES: Counter = Counter()
@@ -326,12 +327,13 @@ def left_hist(ch, cf, cd, ms, rlens, k: int, keep_d):
 
 def kept_hist(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a):
     """-> (B, W) int32 histogram over j - i + H of the hit multiplicity of
-    cells kept by keep_d | keep_a: the intercept fit's input."""
+    cells kept by keep_d | keep_a: the intercept fit's input.  The C
+    entry point zeroes it."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a))
     if _plain(ch):
         return kept_hist_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a)
     W = hist_width(H, R)
-    h_d = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
+    h_d = torch.empty((B, W), dtype=torch.int32, device=ch.device)
     _launch("kept_hist", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, W, keep_d, keep_a, h_d)
     return h_d
@@ -340,12 +342,13 @@ def kept_hist(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a):
 def moment(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a,
            want_w10: bool):
     """-> (B, 3) int64 [count, sum |d|, within-10% count (0 unless
-    want_w10)] over cells kept by keep_d | keep_a, d = j - (i - m)."""
+    want_w10)] over cells kept by keep_d | keep_a, d = j - (i - m).  The
+    C entry point zeroes mom."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d, keep_a))
     if _plain(ch):
         return moment_plain(ch, cf, cd, ms, rlens, k, keep_d, keep_a,
                             want_w10)
-    mom = torch.zeros((B, 3), dtype=torch.int64, device=ch.device)
+    mom = torch.empty((B, 3), dtype=torch.int64, device=ch.device)
     _launch("moment", ch, cf, cd, ms, rlens, B, H, R, lanes, k,
             hist_width(H, R), keep_d, keep_a, int(want_w10), mom)
     return mom

@@ -39,9 +39,10 @@ ENTRY_POINTS = {
 ROUTE_POINTS = {
     ("hist", "selfstats"): ("vt_hist_self", _CODES + [_P] + _TAIL),
 }
-# kernel (every one walks csrc/walk.cuh's strips) -> C function that
-# reports its grid: (B, H, R, lanes, device index, int[5] out); a route
-# of ROUTE_POINTS reports its own through <its entry point>_grid
+# kernel (every one walks csrc/walk.cuh: left_hist and moment2 its
+# strips, the others its on-chip walk) -> C function that reports its
+# grid: (B, H, R, lanes, device index, int[5] out); a route of
+# ROUTE_POINTS reports its own through <its entry point>_grid
 GRID_POINTS = {name: f"vt_{name}_grid" for name in ENTRY_POINTS}
 
 _lock = threading.Lock()

@@ -6,15 +6,16 @@
 // the hit multiplicity (forward + reverse, 0..2) of every cell (i, j)
 // kept by keep_d[b, j - i + H] | keep_a[b, j + i].  The intercept fit
 // (intercept_z in engine/fused.py) reads absolute bins: bin - H is j - i
-// exactly.  The wrapper zeroes h_d.
+// exactly.  The entry point zeroes h_d with one cudaMemsetAsync on the
+// launch's stream.
 //
 // Bound on the H100: integer ALU, as for hist: two lane-0 compares per
 // eligible cell; the keep tables are read only on a hit.
 //
-// Design: walk.cuh's register-blocked strip walk, with hist's
-// strip-local diagonal histogram (strip + TCOLS - 1 bins in shared
-// memory, 8 KB at most).  The keep tables are looked up in global
-// memory on the rare path only; a kept hit adds its multiplicity to its
+// Design: walk.cuh's on-chip walk, with hist's strip-local diagonal
+// histogram (strip + TCOLS - 1 int bins in shared memory) and the
+// strip's bins of both keep tables beside it (stage_keep), so the rare
+// path reads no global memory: a kept hit adds its multiplicity to its
 // shared bin.  The nonzero bins are flushed with one integer atomic
 // each, so the output is bitwise deterministic.
 #include "walk.cuh"
@@ -22,22 +23,23 @@
 using namespace vtw;
 
 template <int LANES>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) kept_hist_kernel(
+__global__ void __launch_bounds__(THREADS, TILE_BLOCKS) kept_hist_kernel(
     const unsigned* ch, const unsigned* cf, const unsigned* cd,
     const int* ms, const int* rlens, int H, int R, int k, int W,
     const uint8_t* keep_d, const uint8_t* keep_a, int* h_d, int strip) {
-  __shared__ __align__(16) unsigned sh[LANES][MAX_STRIP];
-  __shared__ int hd[SPAN];
+  extern __shared__ __align__(16) unsigned smem[];
+  const Tile<LANES> t = tile<LANES>(smem, strip);
   Strip s;
-  if (!strip_bounds(s, ms, rlens, H, R, k, strip)) return;
+  if (!strip_bounds_tile(s, ms, rlens, H, R, k, strip)) return;
   const int span = strip + TCOLS - 1;
+  int* hd = (int*)t.own;
+  uint8_t* keep = (uint8_t*)(hd + span);
   for (int x = threadIdx.x; x < span; x += THREADS) hd[x] = 0;
-  stage(s, sh, ch, cf, cd, H, R);
+  stage_keep(s, strip, H, W, keep_d, keep_a, keep);
+  stage_tile(s, t, ch, cf, cd, H, R);
 
-  const uint8_t* kd = keep_d + (size_t)s.b * W;
-  const uint8_t* ka = keep_a + (size_t)s.b * W;
-  walk(s, sh, cf, cd, H, R, [&](int i, int j, int hf, int hr) {
-    if (kd[j - i + H] | ka[j + i])
+  walk_tile(s, t, H, [&](int i, int j, int hf, int hr) {
+    if (kept(s, strip, keep, i, j))
       atomicAdd(&hd[(j - s.j0) - (i - s.s0) + strip - 1], hf + hr);
   });
   __syncthreads();
@@ -47,19 +49,25 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) kept_hist_kernel(
     if (hd[x]) atomicAdd(row_d + x, hd[x]);
 }
 
+// strip-local tables: the int histogram, then the keep-table bins
+constexpr int KEPT_UNIT = sizeof(int) + KEEP_UNIT;
+
 extern "C" int vt_kept_hist(const void* ch, const void* cf, const void* cd,
                             const void* ms, const void* rlens, int B,
                             int H, int R, int lanes, int k, int W,
                             const void* keep_d, const void* keep_a,
                             void* h_d, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(h_d, 0, (size_t)B * W * sizeof(int),
+                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  VTW_LAUNCH_BY_LANES(lanes, kept_hist_kernel, B, H, R, device,
-                      (cudaStream_t)stream, (const unsigned*)ch,
-                      (const unsigned*)cf, (const unsigned*)cd,
-                      (const int*)ms, (const int*)rlens, H, R, k, W,
-                      (const uint8_t*)keep_d, (const uint8_t*)keep_a,
-                      (int*)h_d);
+  VTW_LAUNCH_TILE(lanes, KEPT_UNIT, kept_hist_kernel, B, H, R, device,
+                  (cudaStream_t)stream, (const unsigned*)ch,
+                  (const unsigned*)cf, (const unsigned*)cd,
+                  (const int*)ms, (const int*)rlens, H, R, k, W,
+                  (const uint8_t*)keep_d, (const uint8_t*)keep_a,
+                  (int*)h_d);
   return (int)cudaGetLastError();
 }
 
@@ -69,5 +77,6 @@ extern "C" int vt_kept_hist_grid(int B, int H, int R, int lanes,
   const void* by_lanes[] = {
       (const void*)kept_hist_kernel<2>, (const void*)kept_hist_kernel<3>,
       (const void*)kept_hist_kernel<4>, (const void*)kept_hist_kernel<5>};
-  return grid_info(by_lanes[lanes - 2], B, H, R, device, out);
+  return grid_info_tile(by_lanes[lanes - 2], B, H, R, lanes, KEPT_UNIT,
+                        device, out);
 }

@@ -17,8 +17,8 @@
 // hits only.
 //
 // Design: walk.cuh's on-chip walk.  Each block also stages its strip's
-// bins of both keep tables (strip + TCOLS - 1 bytes each) in shared
-// memory, so the rare path, which computes the 64-bit moment and
+// bins of both keep tables (stage_keep: strip + TCOLS - 1 bytes each) in
+// shared memory, so the rare path, which computes the 64-bit moment and
 // selection block, reads no global memory.  Sums are 64-bit (the
 // selection sums pass 2^31 at the largest buckets), reduced over each
 // warp and added with one atomic per warp and output, so the result is
@@ -37,25 +37,14 @@ __global__ void __launch_bounds__(THREADS, TILE_BLOCKS) rdd_moment_kernel(
   const Tile<LANES> t = tile<LANES>(smem, strip);
   Strip s;
   if (!strip_bounds_tile(s, ms, rlens, H, R, k, strip)) return;
-  // local d-bin x is j - i + H = x + d0, local a-bin x is j + i = x + a0;
-  // bins outside the row's W hold no cell of the strip
-  const int span = strip + TCOLS - 1;
-  const int d0 = s.j0 - s.s0 - (strip - 1) + H, a0 = s.j0 + s.s0;
-  uint8_t* kd = (uint8_t*)t.own;
-  uint8_t* ka = kd + span;
-  const uint8_t* row_d = keep_d + (size_t)s.b * W;
-  const uint8_t* row_a = keep_a + (size_t)s.b * W;
-  for (int x = threadIdx.x; x < span; x += THREADS) {
-    kd[x] = d0 + x >= 0 && d0 + x < W ? row_d[d0 + x] : 0;
-    ka[x] = a0 + x < W ? row_a[a0 + x] : 0;
-  }
+  uint8_t* keep = (uint8_t*)t.own;
+  stage_keep(s, strip, H, W, keep_d, keep_a, keep);
   stage_tile(s, t, ch, cf, cd, H, R);
 
   const int m = ms[s.b], z = zs[s.b];
   unsigned long long cnt = 0, sum_absd = 0, sel = 0, pos = 0, neg = 0;
   walk_tile(s, t, H, [&](int i, int j, int hf, int hr) {
-    const int di = i - s.s0, dj = j - s.j0;
-    if (kd[dj - di + strip - 1] | ka[dj + di]) {
+    if (kept(s, strip, keep, i, j)) {
       const int mult = hf + hr, ip = i - m, d = j - ip;
       cnt += mult;
       sum_absd += (unsigned long long)(mult * abs(d));
@@ -76,9 +65,6 @@ __global__ void __launch_bounds__(THREADS, TILE_BLOCKS) rdd_moment_kernel(
   warp_add(out + 5, neg);
 }
 
-// strip-local tables: one byte a bin of each keep table
-constexpr int RDD_UNIT = 2;
-
 extern "C" int vt_rdd_moment(const void* ch, const void* cf, const void* cd,
                              const void* ms, const void* rlens, int B,
                              int H, int R, int lanes, int k, int W,
@@ -90,7 +76,7 @@ extern "C" int vt_rdd_moment(const void* ch, const void* cf, const void* cd,
     err = cudaMemsetAsync(mom, 0, 6 * (size_t)B * sizeof(long long),
                           (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  VTW_LAUNCH_TILE(lanes, RDD_UNIT, rdd_moment_kernel, B, H, R, device,
+  VTW_LAUNCH_TILE(lanes, KEEP_UNIT, rdd_moment_kernel, B, H, R, device,
                   (cudaStream_t)stream, (const unsigned*)ch,
                   (const unsigned*)cf, (const unsigned*)cd,
                   (const int*)ms, (const int*)rlens, H, R, k, W,
@@ -105,6 +91,6 @@ extern "C" int vt_rdd_moment_grid(int B, int H, int R, int lanes,
   const void* by_lanes[] = {
       (const void*)rdd_moment_kernel<2>, (const void*)rdd_moment_kernel<3>,
       (const void*)rdd_moment_kernel<4>, (const void*)rdd_moment_kernel<5>};
-  return grid_info_tile(by_lanes[lanes - 2], B, H, R, lanes, RDD_UNIT,
+  return grid_info_tile(by_lanes[lanes - 2], B, H, R, lanes, KEEP_UNIT,
                         device, out);
 }

@@ -1,7 +1,7 @@
 // Register-blocked tile walk of the six dot-plot kernels (hist,
 // left_hist, kept_hist, rdd_moment, moment, moment2), laid out for the
-// H100: left_hist, kept_hist, moment and moment2 walk the strips below;
-// hist (both routes) and rdd_moment the on-chip walk at the end of the
+// H100: left_hist and moment2 walk the strips below; hist (both routes),
+// kept_hist, moment and rdd_moment the on-chip walk at the end of the
 // file, which shares the fast path, the masks and the Strip.
 //
 // A (read, haplotype) row is an H x R grid of cells: cell (i, j) of row b
@@ -295,7 +295,7 @@ inline int grid_info(const void* kernel, int B, int H, int R, int device,
 }
 
 // ---------------------------------------------------------------------------
-// The on-chip walk: hist (both routes) and rdd_moment.
+// The on-chip walk: hist (both routes), kept_hist, moment and rdd_moment.
 //
 // At the main path's small buckets (H, R <= 2048, where the capstone
 // launches every kernel) a launch of the walk above spends little of its
@@ -306,7 +306,8 @@ inline int grid_info(const void* kernel, int B, int H, int R, int device,
 // walk keeps the fast path (group_fires) and the sentinels, and changes:
 // * staging: the block also stages lanes 1..LANES-1 of its TCOLS read
 //   columns, both strands, in dynamic shared memory beside the strip's
-//   hap codes, so the rare path reads shared memory only;
+//   hap codes, and the keep-table kernels the strip's bins of their
+//   keep tables (stage_keep), so the rare path reads shared memory only;
 // * columns: each lane's COLS columns are 32 apart (strip_bounds_tile),
 //   so the diagonal's cells of a group fall on 4 lanes, one each;
 // * the grid (plan_tile): the shortest strip whose grid fits in one wave
@@ -456,6 +457,38 @@ __device__ __forceinline__ void stage_tile(Strip& s, const Tile<LANES>& t,
     s.r[c] = ok ? cd[at + j] : COL_SENTINEL;
   }
   __syncthreads();
+}
+
+// Strip-local bytes a bin of a keep-table pair: one each of keep_d and
+// keep_a.
+constexpr int KEEP_UNIT = 2;
+
+// Stages the strip's bins of row s.b's keep tables (keep_d over
+// j - i + H, keep_a over j + i; W bytes a row) into `bins`: the
+// strip + TCOLS - 1 d-bins, then as many a-bins.  Local d-bin x is
+// j - i + H = x + d0 and local a-bin x is j + i = x + a0; a bin outside
+// [0, W) holds no cell of the strip and stages as 0.  Call it before
+// stage_tile, whose barrier ends it.
+__device__ __forceinline__ void stage_keep(const Strip& s, int strip, int H,
+                                           int W, const uint8_t* keep_d,
+                                           const uint8_t* keep_a,
+                                           uint8_t* bins) {
+  const int span = strip + TCOLS - 1;
+  const int d0 = s.j0 - s.s0 - (strip - 1) + H, a0 = s.j0 + s.s0;
+  const uint8_t* row_d = keep_d + (size_t)s.b * W;
+  const uint8_t* row_a = keep_a + (size_t)s.b * W;
+  for (int x = threadIdx.x; x < span; x += THREADS) {
+    bins[x] = d0 + x >= 0 && d0 + x < W ? row_d[d0 + x] : 0;
+    bins[span + x] = a0 + x < W ? row_a[a0 + x] : 0;
+  }
+}
+
+// Whether the keep tables keep cell (i, j) of the strip: its d-bin or
+// its a-bin set in stage_keep's bins.
+__device__ __forceinline__ bool kept(const Strip& s, int strip,
+                                     const uint8_t* bins, int i, int j) {
+  const int di = i - s.s0, dj = j - s.j0;
+  return bins[dj - di + strip - 1] | bins[strip + TCOLS - 1 + dj + di];
 }
 
 // rare_group on the tile, with strip_bounds_tile's columns: every lane

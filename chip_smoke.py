@@ -105,10 +105,12 @@ CORPUS_CONTIGS, CORPUS_LEN, CORPUS_SEED = 4, 400000, 20260821
 CAPSTONE_CONTIGS = 4
 # phase 8a: the kernels that the goldens of fixtures/golden/ launch
 GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2")
-# the on-chip walk's (kernel, route)s (csrc/walk.cuh), whose device time
-# at the capstone's most-launched shape phase 3 splits (floor_split)
-FLOOR_OF = (("hist", "score"), ("hist", "selfstats"), ("kept_hist", "score"),
-            ("moment", "score"), ("rdd_moment", "score"))
+# every (kernel, route), each on csrc/walk.cuh's on-chip walk, whose
+# device time at the capstone's most-launched shape phase 3 splits
+# (floor_split)
+FLOOR_OF = (("hist", "score"), ("hist", "selfstats"), ("left_hist", "score"),
+            ("kept_hist", "score"), ("moment", "score"),
+            ("moment2", "score"), ("rdd_moment", "score"))
 
 
 # every process this script starts, each in a session of its own, so that
@@ -259,10 +261,10 @@ def _measure(name, args, hap_lens, hits, reps, label, kwargs=None,
     and flags), times the kernel call by call, host work included
     (call_ms), and the plain version's parity call (plain_ms), and prints
     one line.  With `timed`, also its device time apart from host work
-    (engine/kernels/timing.py): device_ms (fill + kernel from the C entry
-    point, taking turns over args and the same rows rolled by one),
-    fill_ms, host_us a wrapper call, and bound_share = bound / device_ms.
-    Returns the numbers as a dict."""
+    (engine/kernels/timing.py): device_ms (the C entry point, its memset
+    of the outputs included, taking turns over args and the same rows
+    rolled by one), host_us a wrapper call, and bound_share = bound /
+    device_ms.  Returns the numbers as a dict."""
     import torch
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.kernels import roofline, timing
@@ -300,15 +302,15 @@ def _measure(name, args, hap_lens, hits, reps, label, kwargs=None,
     if timed:
         second = functools.partial(getattr(kernels, wrapper),
                                    *timing.rolled(args), **kwargs)
-        out["device_ms"], out["fill_ms"] = timing.device_ms([kern, second])
+        out["device_ms"] = timing.device_ms([kern, second])
         out["host_us"] = timing.host_us([kern, second])
         out["bound_share"] = out["bound_ms"] / out["device_ms"]
         both = 2 * roofline.tensor_bytes(
             [a for a in args if isinstance(a, torch.Tensor)] + list(got))
         out["l2"] = "warm" if both <= L2_BYTES else "spills"
-        line += (f"; device {out['device_ms']:.4f} ms (fill "
-                 f"{out['fill_ms']:.4f}), host {out['host_us']:.1f} us a "
-                 f"call, bound share {out['bound_share']:.3f}, L2 "
+        line += (f"; device {out['device_ms']:.4f} ms, host "
+                 f"{out['host_us']:.1f} us a call, bound share "
+                 f"{out['bound_share']:.3f}, L2 "
                  f"{out['l2']} ({both / 1e6:.1f} MB in two batches)")
     print(line, flush=True)
     return out
@@ -510,9 +512,9 @@ def selfstats_parity(fa, events, reps: int, report) -> None:
                 selfstats_plain_ms=got["plain_ms"],
                 selfstats_bound_ms=got["bound_ms"], selfstats_shape=shape)
             report["hist"]["selfstats"] = {
-                x: got[x] for x in ("device_ms", "fill_ms", "call_ms",
-                                    "host_us", "bound_ms", "bound_by",
-                                    "bound_share", "l2")}
+                x: got[x] for x in ("device_ms", "call_ms", "host_us",
+                                    "bound_ms", "bound_by", "bound_share",
+                                    "l2")}
             report["hist"]["selfstats"]["shape"] = shape
 
 
@@ -556,9 +558,9 @@ def bucket_parity(runs, reps: int, report) -> None:
             "rows": src, "launches_bed": n["bed"],
             "launches_capstone": n["capstone"],
             "waves": blocks / (per_sm * sms),
-            **{x: got[x] for x in ("device_ms", "fill_ms", "call_ms",
-                                   "host_us", "bound_ms", "bound_by",
-                                   "bound_share", "plain_ms", "l2")}})
+            **{x: got[x] for x in ("device_ms", "call_ms", "host_us",
+                                   "bound_ms", "bound_by", "bound_share",
+                                   "plain_ms", "l2")}})
     for src, run in runs.items():
         lost = roofline.lost_ms(run.shapes, device, bound)
         for name, route in [(x, "score") for x in kernels.NAMES] + \
@@ -586,15 +588,15 @@ def floor_split(runs, report) -> None:
     self-stats rows), from engine/kernels/timing.py windows (two batches,
     the rows and the rows rolled by one): `path` the device work of whole
     wrapper calls as the main path issues them, `entry` the C entry point
-    alone (timing.device_ms less the wrapper's fill), `empty` the entry
-    point on rows with no eligible cell (rlens 0: every block exits at
-    once) and `nohit` on read codes drawn at random (next to no rare
-    path).  The split: launch = empty (with the memset, where the entry
-    point zeroes the outputs itself), staging and fast path = nohit -
-    empty (staging, zeroing, the fast path, the flush scan, the tail
-    wave), rare path = entry - nohit (the candidates' lanes, the
-    visitors, the flush of the bins they filled), fill = path - entry
-    (the wrapper's own fill ops)."""
+    alone (timing.device_ms), `empty` the entry point on rows with no
+    eligible cell (rlens 0: every block exits at once) and `nohit` on
+    read codes drawn at random (next to no rare path).  The split:
+    launch = empty (with the entry point's memset of the outputs),
+    staging and fast path = nohit - empty (staging, zeroing, the fast
+    path, the flush scan, the tail wave), rare path = entry - nohit (the
+    candidates' lanes, the visitors, the flush of the bins they filled),
+    fill = path - entry (device work of a wrapper call beyond its entry
+    point: a fill op, where a wrapper issued one)."""
     import torch
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.kernels import timing
@@ -612,8 +614,7 @@ def floor_split(runs, report) -> None:
                     functools.partial(fn, *timing.rolled(a), **kwargs)]
 
         def entry(a):
-            total, fill = timing.device_ms(calls(a))
-            return total - fill
+            return timing.device_ms(calls(a))
 
         nohit, empty = list(args), list(args)
         for x in (1, 2):
@@ -1686,7 +1687,7 @@ def main() -> int:
          "bound_by": report[name]["bound_by"],
          "library_ms": None, "shape": report[name]["shape"],
          **{x: report[name][x] for x in (
-             "device_ms", "fill_ms", "call_ms", "host_us", "bound_share",
+             "device_ms", "call_ms", "host_us", "bound_share",
              "l2", "lost_ms_bed", "lost_ms_capstone", "bound_share_bed",
              "bound_share_capstone", "small_ms", "small_shape", "buckets")},
          **{x: report[name][x] for x in (

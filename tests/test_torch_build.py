@@ -6,15 +6,17 @@ bookkeeping and their sentinels, on the CPU (no nvcc needed).
   served from a stale library.
 * Every kernel source includes csrc/walk.cuh, the one header in csrc/,
   and defines the C symbols that build binds, its grid query among them.
-* A (kernel, route) runs walk.cuh's on-chip walk exactly when its C
-  entry point zeroes the outputs (kernels.ZEROED_BY_ENTRY, so its
-  wrapper fills nothing) and chip_smoke.py splits its floor (FLOOR_OF).
+* Every (kernel, route) runs walk.cuh's on-chip walk, its C entry point
+  zeroes the outputs (so its wrapper allocates them with torch.empty and
+  fills nothing) and chip_smoke.py splits its floor (FLOOR_OF); no
+  source still holds the strip walk that the on-chip walk replaced.
 * csrc/walk.cuh masks rows and columns with sentinel code words; no
   code on the other side of a compare may hold them, or a masked cell
   would wake the walk's fast path (the rare path re-tests the bounds,
   so counts would stay exact, but slow).
 """
 import ast
+import inspect
 import os
 import re
 import shutil
@@ -71,9 +73,9 @@ def test_library_path_follows_its_own_source_only(csrc):
 
 @pytest.mark.parametrize("name", sorted(build.ENTRY_POINTS))
 def test_kernel_source_walks_one_header_and_defines_its_symbols(name):
-    """Every kernel includes walk.cuh (its strip walk or its on-chip
-    walk) and defines each C symbol build binds, its launch and its grid
-    query (nvcc and the card are not needed to see either)."""
+    """Every kernel includes walk.cuh (its on-chip walk) and defines
+    each C symbol build binds, its launch and its grid query (nvcc and
+    the card are not needed to see either)."""
     with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
         src = fh.read()
     assert re.findall(r'#include "(\w+\.cuh)"', src) == ["walk.cuh"]
@@ -114,27 +116,46 @@ def _floor_of():
 @pytest.mark.parametrize("name, route", sorted(kernels.ROUTES))
 def test_on_chip_walk_goes_with_entry_zeroing_and_a_floor_split(name,
                                                                route):
-    """For every (kernel, route): the kernel its C entry point launches
-    calls walk_tile (the on-chip walk) exactly when the entry point
-    zeroes the outputs with cudaMemsetAsync, when the route is in
-    kernels.ZEROED_BY_ENTRY (whose wrappers fill nothing, and whose fill
-    timing._Launch skips), and when chip_smoke.py's FLOOR_OF splits its
-    floor.  A strip-walk kernel calls walk and none of the three holds."""
+    """For every (kernel, route): its C entry point launches, through
+    VTW_LAUNCH_TILE, a kernel that calls walk_tile (the on-chip walk);
+    the entry point zeroes the outputs with cudaMemsetAsync before the
+    launch; the route's wrapper allocates them with torch.empty and
+    runs no fill op (which timing.device_ms would not time); and
+    chip_smoke.py's FLOOR_OF splits its floor."""
     with open(os.path.join(build.CSRC, f"{name}.cu")) as fh:
         src = fh.read()
     symbol = build.ROUTE_POINTS.get((name, route),
                                     build.ENTRY_POINTS[name])[0]
     entry = _c_function(src, symbol)
-    launch = re.search(r"VTW_LAUNCH_(TILE|BY_LANES)\(\s*lanes,\s*"
-                       r"(?:\w+,\s*)?(\w+_kernel),", entry)
+    launch = re.search(r"VTW_LAUNCH_TILE\(\s*lanes,\s*\w+,\s*"
+                       r"(\w+_kernel),", entry)
     assert launch, symbol
-    body = _c_function(src, launch.group(2))
-    on_chip = "walk_tile(" in body
-    assert on_chip == (launch.group(1) == "TILE")
-    assert on_chip != bool(re.search(r"\bwalk\(", body))
-    assert on_chip == ("cudaMemsetAsync(" in entry)
-    assert on_chip == ((name, route) in kernels.ZEROED_BY_ENTRY)
-    assert on_chip == ((name, route) in _floor_of())
+    assert "walk_tile(" in _c_function(src, launch.group(1))
+    assert -1 < entry.find("cudaMemsetAsync(") < launch.start()
+    wrapper = inspect.getsource(getattr(kernels, kernels.ROUTES[name,
+                                                                route]))
+    assert "torch.empty(" in wrapper
+    assert not re.search(r"zeros|\.zero_\(|\.fill_\(|\bfull", wrapper)
+    assert (name, route) in _floor_of()
+
+
+# the strip walk's pieces, which the on-chip walk replaced
+STRIP_WALK = (r"\bplan\(", r"\bstage\(", r"\brare_group\b", r"\bwalk\(",
+              r"\bgrid_info\(", r"\bVTW_LAUNCH_BY_LANES\b",
+              r"\bMIN_BLOCKS\b", r"\bSPAN\b")
+
+
+@pytest.mark.parametrize("source", sorted(
+    x for x in os.listdir(build.CSRC) if x.endswith((".cu", ".cuh"))))
+def test_no_source_holds_the_strip_walk(source):
+    """walk.cuh and every kernel source in csrc/ neither define nor call
+    (nor name in a comment) the strip walk's plan, stage, rare_group,
+    walk, grid_info, VTW_LAUNCH_BY_LANES, MIN_BLOCKS or SPAN: every
+    kernel runs the on-chip walk, through plan_tile, stage_tile,
+    rare_tile, walk_tile, grid_info_tile and VTW_LAUNCH_TILE."""
+    with open(os.path.join(build.CSRC, source)) as fh:
+        src = fh.read()
+    assert [x for x in STRIP_WALK if re.search(x, src)] == []
 
 
 def test_csrc_has_one_walk_header():

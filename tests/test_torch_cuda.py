@@ -79,8 +79,8 @@ def test_kernels_equal_plain(cuda, H, R, k):
 
 
 def _walk_batch(H, R, k, seed, copies):
-    """Rows at the strip walk's edges (csrc/walk.cuh: 4-row groups,
-    4-column thread groups, strips of 32 to 1024 rows): random and
+    """Rows at the walk's edges (csrc/walk.cuh: 4-row groups, columns
+    32 apart on a warp's lanes, strips of 32 to 1024 rows): random and
     dense-hit repeat rows with m cycling over 0, 3 (inside the first
     group), 1023 (the last row of the first 1024-row strip) and 1025
     (inside the second one's first group); rows 1, 2 and 6 cut so that
@@ -109,15 +109,12 @@ def _walk_batch(H, R, k, seed, copies):
                                         (4100, 4100, 3), (12544, 1024, 2)])
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
-    """The six kernels, on both walks of csrc/walk.cuh, against their
-    plain versions at ragged shapes and the walks' edges: hist, kept_hist and
-    rdd_moment; left_hist with the 50-threshold d-table; moment with the
-    m1b tables and with the 50-threshold tables and w10, as modes m1b and
-    w10 call it; moment2 with both sets, as mode del calls it.  On the
-    H100's 132 SMs the strip walk (left_hist, moment2) runs the first
-    shape on 32-row strips, the second on 128-row ones, the third on
-    1024-row ones and the fourth, a DEL-mode hap taller than its reads,
-    on 256-row ones."""
+    """The six kernels, on csrc/walk.cuh's on-chip walk, against their
+    plain versions at ragged shapes and the walk's edges: hist, kept_hist
+    and rdd_moment; left_hist with the 50-threshold d-table; moment with
+    the m1b tables and with the 50-threshold tables and w10, as modes m1b
+    and w10 call it; moment2 with both sets, as mode del calls it.  The
+    fourth shape is a DEL-mode hap taller than its reads."""
     batch = _walk_batch(H, R, k, H + R + k, copies)
     h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1, cuda)
     codes = (*row_codes(h, r, rl, k), m, rl, k)
@@ -162,18 +159,29 @@ def _keep_batch(H, R, B, seed):
 
 
 @pytest.mark.parametrize("B,H,R,strip", [(1, 512, 512, 32),
-                                         (20, 8192, 8192, 1024)])
+                                         (20, 8192, 8192, 1024),
+                                         (20, 12544, 1024, 384)])
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_keep_kernels_on_chip_walk_equal_plain(cuda, B, H, R, strip, k):
-    """kept_hist and moment (want_w10 both ways) on the on-chip walk
-    against their plain versions, bitwise, with the m1b tables, the
-    50-threshold tables, all-set and all-clear tables and each table set
-    alone: B=1 small rows, where the grid plan picks 32-row strips, and
-    B=20 large rows, where it picks 1024-row ones (checked through
-    build.grid_info); m > 0 on most rows, a hap at length H."""
+    """The four keep-table kernels on the on-chip walk against their
+    plain versions, bitwise: kept_hist and moment (want_w10 both ways)
+    with the m1b tables, the 50-threshold tables, all-set and all-clear
+    tables and each table set alone; left_hist with each of those
+    d-tables; moment2 with the m1b pair beside the 50-threshold pair,
+    both ways round, each of the six pairs on both sets, and the mixed
+    pairs (one set all set, the other all clear, both ways).  B=1 small
+    rows, where the grid plan picks 32-row strips; B=20 large rows, where
+    it picks 1024-row ones; B=20 DEL rows (a 12544 hap, reads of 1024),
+    where it picks 384-row strips at k = 10 and at every k a grid of one
+    wave (checked through build.grid_info); m > 0 on most rows, a hap at
+    length H."""
     from vapor_tpu_torch.engine.kernels import build
-    for name in ("kept_hist", "moment"):
-        assert build.grid_info(name, B, H, R, k // 10 + 1)[3] == strip
+    for name in ("left_hist", "kept_hist", "moment", "moment2"):
+        blocks, per_sm, sms, got, _ = build.grid_info(name, B, H, R,
+                                                      k // 10 + 1)
+        if k == 10 or strip != 384:
+            assert got == strip, name
+        assert blocks <= per_sm * sms or got == 1024, name
     haps, reads, rlens, ms = _keep_batch(H, R, B, H + R + k)
     h, r, rl, m, _ = batch_from_numpy(haps, reads, rlens, ms, k // 10 - 1,
                                       cuda)
@@ -186,6 +194,9 @@ def test_keep_kernels_on_chip_walk_equal_plain(cuda, B, H, R, strip, k):
     ones, zeros = torch.ones_like(kd), torch.zeros_like(kd)
     tables = [(kd, ka), (kd50, ka50), (ones, ones), (zeros, zeros),
               (ones, zeros), (zeros, ones)]
+    pairs = [(kd, ka, kd50, ka50), (kd50, ka50, kd, ka),
+             *((*keep, *keep) for keep in tables),
+             (ones, ones, zeros, zeros), (zeros, zeros, ones, ones)]
     launched = dict(kernels.LAUNCHES)
     for keep in tables:
         want = kernels.kept_hist_plain(*codes, *keep)
@@ -193,14 +204,32 @@ def test_keep_kernels_on_chip_walk_equal_plain(cuda, B, H, R, strip, k):
         for w10 in (False, True):
             want = kernels.moment_plain(*codes, *keep, w10)
             assert torch.equal(kernels.moment(*codes, *keep, w10), want)
+    for keep_d in (kd, kd50, ones, zeros):
+        want = kernels.left_hist_plain(*codes, keep_d)
+        assert torch.equal(kernels.left_hist(*codes, keep_d), want)
+    for pair in pairs:
+        want = kernels.moment2_plain(*codes, *pair)
+        assert torch.equal(kernels.moment2(*codes, *pair), want)
     assert kernels.LAUNCHES["kept_hist"] == launched["kept_hist"] + 6
     assert kernels.LAUNCHES["moment"] == launched["moment"] + 12
+    assert kernels.LAUNCHES["left_hist"] == launched["left_hist"] + 4
+    assert kernels.LAUNCHES["moment2"] == launched["moment2"] + 10
     # all-set tables keep every hit: kept_hist is hist's h_d, moment's
-    # count every hit's multiplicity
+    # count every hit's multiplicity, left_hist drops none (and all-clear
+    # d-tables keep none, so left_hist is hist's h_a); moment2's sets are
+    # moment's, slot 2 stays 0
     assert torch.equal(kernels.kept_hist(*codes, ones, ones), h_d)
-    assert torch.equal(kernels.moment(*codes, ones, ones, True)[:, 0],
-                       h_d.long().sum(1))
+    every = kernels.moment(*codes, ones, ones, True)
+    assert torch.equal(every[:, 0], h_d.long().sum(1))
     assert int(kernels.moment(*codes, zeros, zeros, True).abs().sum()) == 0
+    assert int(kernels.left_hist(*codes, ones).abs().sum()) == 0
+    assert torch.equal(kernels.left_hist(*codes, zeros), h_a)
+    mixed = kernels.moment2(*codes, ones, ones, zeros, zeros)
+    assert torch.equal(mixed[:, :2], every[:, :2])
+    assert int(mixed[:, 2:].abs().sum()) == 0
+    mixed = kernels.moment2(*codes, zeros, zeros, ones, ones)
+    assert torch.equal(mixed[:, 3:], every)
+    assert int(mixed[:, :3].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])
@@ -397,12 +426,11 @@ def test_goldens_on_card(cuda, backend):
 @pytest.mark.parametrize("H,R", [(1536, 2560), (12544, 12544)])
 def test_device_time_within_call_time(cuda, H, R):
     """timing.device_ms, a call's device work apart from host work (the
-    wrapper's fill and the kernel from its C entry point), is at most the
-    call's time with host work (call_ms), for each kernel route at a small
-    and a large bucket, B=20; the fill is 0 where the entry point zeroes
-    the outputs itself (kernels.ZEROED_BY_ENTRY).  Tolerance 5%: where
-    the device work outlasts the host work both times are the same device
-    work, and two windows of it differ by run-to-run noise."""
+    C entry point's memset of the outputs and the kernel), is more than
+    0 and at most the call's time with host work (call_ms), for each
+    kernel route at a small and a large bucket, B=20.  Tolerance 5%:
+    where the device work outlasts the host work both times are the same
+    device work, and two windows of it differ by run-to-run noise."""
     haps, reads, rlens, ms = random_rows(H, R, 20, seed=H + R, ms=(0, 23))
     h, r, rl, m, _ = batch_from_numpy(haps, reads, rlens, ms, 0, cuda)
     codes = (*row_codes(h, r, rl, 10), m, rl, 10)
@@ -418,12 +446,8 @@ def test_device_time_within_call_time(cuda, H, R):
     for (name, route), wrapper in kernels.ROUTES.items():
         args = (*codes, *rest[name])
         call = functools.partial(getattr(kernels, wrapper), *args)
-        device, fill = timing.device_ms([call, functools.partial(
+        device = timing.device_ms([call, functools.partial(
             getattr(kernels, wrapper), *timing.rolled(args))])
         called = timing.call_ms(call, 5)
-        if (name, route) in kernels.ZEROED_BY_ENTRY:
-            assert fill == 0, (wrapper, fill)
-        else:
-            assert fill > 0, (wrapper, fill)
-        assert fill < device <= 1.05 * called, (wrapper, device, called)
+        assert 0 < device <= 1.05 * called, (wrapper, device, called)
         assert timing.host_us([call]) > 0

@@ -281,8 +281,8 @@ def test_rdd_plain_versions_match_jax_stages(k, m):
 def test_plain_versions_match_jax_on_repeat_rows(k):
     """hist, kept_hist and rdd_moment against the JAX stages on dense-hit
     rows (sim/worklists.py repeat_rows: a third of each hap and read is one
-    6 bp unit repeated), where the card's strip walk takes its rare path
-    on most groups of the repeat x repeat block."""
+    6 bp unit repeated), where the card's walk takes its rare path on
+    most groups of the repeat x repeat block."""
     Hs, Rs, B = 512, 512, 3
     batch = repeat_rows(Hs, Rs, B, seed=k, ms=(0, 23))
     h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
@@ -347,7 +347,7 @@ def test_left_hist_plain_matches_jax_on_repeat_rows(k, m):
     """left_hist with the 50-threshold d-table against the JAX within-10%
     leftover histogram on dense-hit rows shaped as the DEL mode's (a hap
     taller than the reads cut at the left breakpoint), where the card's
-    strip walk takes its rare path on most groups of the repeat block.
+    walk takes its rare path on most groups of the repeat block.
     The reads are wide enough, and the seeds such, that the d-table drops
     hits at every k: at Rs = 256 the 40-mer hits of the repeat lie within
     50 diagonals of the main one, where the table keeps them."""

@@ -6,8 +6,8 @@ and timing.py), beside what test_torch_fused.py holds against JAX:
 * the card branch of a wrapper, driven on CPU tensors with
   ``kernels._plain`` patched and its launch recorded by ``timing._Launch``
   instead of made: the route, the arguments the C entry point gets, and
-  the fills (none where the entry point zeroes the outputs itself, as
-  hist, hist_self, kept_hist, moment and rdd_moment do);
+  no fill (every entry point zeroes the outputs itself, so each wrapper
+  allocates them with one ``torch.empty``);
 * hist's scal, whose first and last hit rows are encoded so that zero is
   the identity, through ``kernels.hist_scal`` against the JAX engine's
   FusedStats of ``_fused_batch_jit``, exactly.
@@ -118,15 +118,34 @@ def card_branch(monkeypatch):
     monkeypatch.setattr(kernels, "_plain", lambda t: False)
 
 
+def _noting(made, what, real):
+    """`real`, noting `what` in `made` at each call (a function, so that
+    it binds as a method where it replaces one)."""
+    def noted(*args, **kwargs):
+        made.append(what)
+        return real(*args, **kwargs)
+    return noted
+
+
 @pytest.mark.parametrize("wrapper", sorted(TAILS))
-def test_launch_records_route_arguments_and_fills(card_branch, wrapper):
+def test_launch_records_route_arguments_and_fills(card_branch, wrapper,
+                                                  monkeypatch):
     """timing._Launch on each wrapper's card branch: the kernel and route
     of kernels.ROUTES, an entry point of build's with one argument a
-    pointer (the card's index and stream apart), and no fill where the C
-    entry point zeroes the outputs itself; the wrappers that fill keep
-    one zero fill a buffer."""
-    launch = timing._Launch(lambda: getattr(kernels, wrapper)(
-        *CODES, *TAILS[wrapper]))
+    pointer (the card's index and stream apart), and no fill: the C
+    entry point zeroes the outputs itself, so the wrapper allocates them
+    with one torch.empty, and neither makes zeros nor fills a tensor."""
+    made = []
+    with monkeypatch.context() as patch:
+        for what in ("empty", "zeros", "zeros_like", "full", "full_like"):
+            patch.setattr(torch, what,
+                          _noting(made, what, getattr(torch, what)))
+        for what in ("zero_", "fill_", "copy_"):
+            patch.setattr(torch.Tensor, what,
+                          _noting(made, what, getattr(torch.Tensor, what)))
+        launch = timing._Launch(lambda: getattr(kernels, wrapper)(
+            *CODES, *TAILS[wrapper]))
+    assert made == ["empty"]
     assert kernels.ROUTES[launch.name, launch.route] == wrapper
     symbol, argtypes = build.ROUTE_POINTS.get(
         (launch.name, launch.route), build.ENTRY_POINTS[launch.name])
@@ -136,13 +155,6 @@ def test_launch_records_route_arguments_and_fills(card_branch, wrapper):
     assert launch.args[0] is CODES[0] and launch.index == -1
     assert launch.pointers[:5] == [x.data_ptr() for x in CODES[:5]]
     assert launch.pointers[5:10] == [B, H, R, 2, 10]
-    zeroed = (launch.name, launch.route) in kernels.ZEROED_BY_ENTRY
-    assert zeroed == (wrapper in ("hist", "hist_self", "kept_hist",
-                                  "moment", "rdd_moment"))
-    if zeroed:
-        assert launch.fills == []
-    else:
-        assert len(launch.fills) == 1 and launch.fills[0][1] is None
 
 
 def test_hist_card_branch_views_one_buffer(card_branch):

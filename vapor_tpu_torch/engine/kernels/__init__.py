@@ -22,7 +22,9 @@ refiner's rows through hist's self-stats entry point); for CPU tensors it
 runs the plain PyTorch version of the same function, which lives here
 too.  Plain versions run on any device; ``PLAIN_CUDA_CALLS`` counts the
 calls they get with CUDA tensors, which only the on-card comparison of a
-kernel with its plain version makes.
+kernel with its plain version makes.  Every C entry point zeroes its
+kernel's outputs itself (one cudaMemsetAsync on the launch's stream), so
+the wrappers allocate them with ``torch.empty`` and run no fill.
 """
 from __future__ import annotations
 
@@ -39,11 +41,6 @@ NAMES = ("hist", "left_hist", "kept_hist", "moment", "moment2", "rdd_moment")
 # (kernel, route) -> the wrapper that launches it
 ROUTES = {**{(name, "score"): name for name in NAMES},
           ("hist", "selfstats"): "hist_self"}
-# the (kernel, route)s whose C entry point zeroes the outputs itself (one
-# cudaMemsetAsync on the launch's stream): their wrappers fill nothing
-ZEROED_BY_ENTRY = frozenset({("hist", "score"), ("hist", "selfstats"),
-                             ("kept_hist", "score"), ("moment", "score"),
-                             ("rdd_moment", "score")})
 LAUNCHES: Dict[str, int] = dict.fromkeys(NAMES, 0)
 LAUNCH_SHAPES: Counter = Counter()
 PLAIN_CUDA_CALLS: Dict[str, int] = dict.fromkeys(NAMES, 0)
@@ -314,12 +311,13 @@ def hist_self(ch, cf, cd, ms, rlens, k: int):
 
 def left_hist(ch, cf, cd, ms, rlens, k: int, keep_d):
     """-> (B, W) int32 histogram over j + i of the hit multiplicity of
-    cells whose bin j - i + H is not set in keep_d."""
+    cells whose bin j - i + H is not set in keep_d.  The C entry point
+    zeroes it."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k, (keep_d,))
     if _plain(ch):
         return left_hist_plain(ch, cf, cd, ms, rlens, k, keep_d)
     W = hist_width(H, R)
-    h_a = torch.zeros((B, W), dtype=torch.int32, device=ch.device)
+    h_a = torch.empty((B, W), dtype=torch.int32, device=ch.device)
     _launch("left_hist", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, W, keep_d, h_a)
     return h_a
@@ -357,13 +355,14 @@ def moment(ch, cf, cd, ms, rlens, k: int, keep_d, keep_a,
 def moment2(ch, cf, cd, ms, rlens, k: int, keep_d1, keep_a1, keep_d2,
             keep_a2):
     """-> (B, 6) int64: moment(keep_d1, keep_a1, want_w10=False) beside
-    moment(keep_d2, keep_a2, want_w10=True), in one pass."""
+    moment(keep_d2, keep_a2, want_w10=True), in one pass.  The C entry
+    point zeroes mom."""
     B, lanes, H, R = _check(ch, cf, cd, ms, rlens, k,
                             (keep_d1, keep_a1, keep_d2, keep_a2))
     if _plain(ch):
         return moment2_plain(ch, cf, cd, ms, rlens, k, keep_d1, keep_a1,
                              keep_d2, keep_a2)
-    mom = torch.zeros((B, 6), dtype=torch.int64, device=ch.device)
+    mom = torch.empty((B, 6), dtype=torch.int64, device=ch.device)
     _launch("moment2", ch, cf, cd, ms, rlens, B, H, R, lanes,
             k, hist_width(H, R), keep_d1, keep_a1, keep_d2, keep_a2, mom)
     return mom

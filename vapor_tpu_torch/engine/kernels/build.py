@@ -39,10 +39,9 @@ ENTRY_POINTS = {
 ROUTE_POINTS = {
     ("hist", "selfstats"): ("vt_hist_self", _CODES + [_P] + _TAIL),
 }
-# kernel (every one walks csrc/walk.cuh: left_hist and moment2 its
-# strips, the others its on-chip walk) -> C function that reports its
-# grid: (B, H, R, lanes, device index, int[5] out); a route of
-# ROUTE_POINTS reports its own through <its entry point>_grid
+# kernel (every one walks csrc/walk.cuh's on-chip walk) -> C function
+# that reports its grid: (B, H, R, lanes, device index, int[5] out); a
+# route of ROUTE_POINTS reports its own through <its entry point>_grid
 GRID_POINTS = {name: f"vt_{name}_grid" for name in ENTRY_POINTS}
 
 _lock = threading.Lock()
@@ -120,9 +119,8 @@ def grid_info(name: str, B: int, H: int, R: int, lanes: int,
               device: int = 0, route: str = "score"
               ) -> Tuple[int, int, int, int, int]:
     """(blocks, blocks resident per SM, SMs, hap rows a block, dynamic
-    shared bytes a block: 0 for a kernel that uses static shared memory
-    only) of the launch of a kernel's route on B rows of H x R cells on
-    card `device`."""
+    shared bytes a block) of the launch of a kernel's route on B rows of
+    H x R cells on card `device`."""
     symbol = GRID_POINTS[name] if route == "score" else \
         f"{ROUTE_POINTS[name, route][0]}_grid"
     fn = _function(name, symbol, [_I] * 5 + [_P])

@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(THREADS, TILE_BLOCKS) kept_hist_kernel(
 
   walk_tile(s, t, H, [&](int i, int j, int hf, int hr) {
     if (kept(s, strip, keep, i, j))
-      atomicAdd(&hd[(j - s.j0) - (i - s.s0) + strip - 1], hf + hr);
+      atomicAdd(&hd[d_bin(s, strip, i, j)], hf + hr);
   });
   __syncthreads();
   // local d-bin x is j - i = x + j0 - s0 - (strip - 1), stored at + H

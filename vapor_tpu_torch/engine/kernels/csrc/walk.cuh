@@ -1,8 +1,5 @@
-// Register-blocked tile walk of the six dot-plot kernels (hist,
-// left_hist, kept_hist, rdd_moment, moment, moment2), laid out for the
-// H100: left_hist and moment2 walk the strips below; hist (both routes),
-// kept_hist, moment and rdd_moment the on-chip walk at the end of the
-// file, which shares the fast path, the masks and the Strip.
+// The on-chip tile walk of the six dot-plot kernels (hist, left_hist,
+// kept_hist, rdd_moment, moment, moment2), laid out for the H100.
 //
 // A (read, haplotype) row is an H x R grid of cells: cell (i, j) of row b
 // pairs hap k-mer i with read k-mer j, is eligible when i >= m (the
@@ -18,18 +15,21 @@
 // alone and everything else on a rare path:
 //
 // * A block walks a strip of `strip` hap rows x TCOLS read columns of
-//   one row b.  Thread t owns the COLS consecutive columns j0 + COLS t + c
-//   and keeps their lane-0 words of both strands in 2 COLS registers;
-//   the other lanes are read from global memory on the rare path only,
-//   so registers do not grow with k.
-// * The strip's hap codes of every lane sit in shared memory, staged
-//   with plain loads (at most 20 a thread, against 256 groups of walk).
-//   Lane 0 is read as one 16-byte warp-wide broadcast per GROUP = 4
-//   rows, which feeds 8 COLS compares.
-// * Fast path: the 8 COLS lane-0 equalities of a 4-row group are ORed
+//   one row b.  Thread t keeps the lane-0 words of both strands of its
+//   COLS columns in 2 COLS registers; a lane's columns are 32 apart
+//   (strip_bounds_tile), so the read's diagonal, which crosses a group's
+//   4 rows on 4 neighbouring columns, falls on 4 lanes, one each.
+// * Staging (stage_tile): the strip's hap codes of every lane and lanes
+//   1..LANES-1 of the block's read columns, both strands, go to dynamic
+//   shared memory, and the keep-table kernels stage the strip's bins of
+//   their keep tables beside them (stage_keep), so the rare path reads
+//   shared memory only.
+// * Fast path (group_fires): lane 0 of GROUP = 4 hap rows is read as one
+//   16-byte warp-wide broadcast, its 8 COLS lane-0 equalities are ORed
 //   into one predicate and the warp takes one vote.  When any thread of
 //   the warp saw a lane-0 match, the warp re-tests its cells of the
-//   group with every lane and calls the visitor (the rare path).
+//   group with every lane and calls the visitor (the rare path,
+//   rare_tile).
 // * Masks cost nothing per cell: in shared memory the strip's rows
 //   outside [max(strip start, m), H) hold ROW_SENTINEL as lane 0, and the
 //   registers of columns past rlen - k hold COL_SENTINEL on both strands.
@@ -38,14 +38,14 @@
 //   (tests/test_torch_build.py), so a masked cell never wakes the fast
 //   path; the rare path re-tests both bounds all the same, so counts
 //   stay exact for any input.
-// * A strip spans MAX_STRIP = 1024 rows where the grid is large: each
-//   block's setup (staging, zeroing and flushing the histograms, the
-//   barriers, the reductions) is paid over 4096 cells a thread.  Where
-//   the grid would not fill the card (short haps and reads), strips halve
-//   down to MIN_STRIP rows, so that more, shorter blocks share the SMs.
-//   There a block's time is its longest warp's: the one that holds the
-//   read's diagonal takes the rare path on every group, one global-load
-//   trip at a time, so its time grows with the strip's rows.
+// * The grid (plan_tile): the shortest strip, in steps of MIN_STRIP rows,
+//   whose grid fits in one wave at TILE_BLOCKS blocks an SM.  A block's
+//   time grows with its strip (the warp that holds the read's diagonal
+//   takes the rare path on every group of it), so a grid that fits in
+//   one wave gains nothing from taller strips and loses a whole block's
+//   time to a second wave.
+// * Outputs: each C entry point zeroes them with one cudaMemsetAsync on
+//   the launch's stream, so the wrappers run no fill op of their own.
 //
 // All accumulation is integer; outputs do not depend on the order in
 // which the atomics land.
@@ -60,14 +60,14 @@
 namespace vtw {
 
 constexpr int THREADS = 256;             // threads per block
-constexpr int MIN_BLOCKS = 4;            // blocks per SM: 64 registers a
-                                         // thread, none spilled
 constexpr int COLS = 4;                  // read columns per thread
 constexpr int TCOLS = THREADS * COLS;    // read columns per block
 constexpr int MAX_STRIP = 1024;          // hap rows per block, at most
-constexpr int MIN_STRIP = 32;            // ... and at least
+constexpr int MIN_STRIP = 32;            // ... and at least, in steps of
 constexpr int GROUP = 4;                 // hap rows per 16-byte shared load
-constexpr int SPAN = MAX_STRIP + TCOLS - 1;  // distinct j - i (and j + i)
+// blocks per SM the launch bounds ask for: 48 registers a thread, none
+// spilled (chip_smoke.py phase 1)
+constexpr int TILE_BLOCKS = 5;
 // eight symbols of HAP_PAD (nibble 13) and of READ_PAD (nibble 14), in
 // the packing of engine/fused.py pack_codes
 constexpr unsigned ROW_SENTINEL = 0xDDDDDDDDu;
@@ -82,23 +82,6 @@ struct Strip {
   unsigned f[COLS];   // lane-0 forward codes of the thread's columns
   unsigned r[COLS];   // lane-0 reverse (dot-space) codes
 };
-
-// The launch on B rows of H x R cells on card `device`: the tallest
-// strip, from MAX_STRIP down to MIN_STRIP, whose grid still gives every
-// SM MIN_BLOCKS blocks, and its grid.  Returns the CUDA error.
-inline cudaError_t plan(int B, int H, int R, int device, int& strip,
-                        dim3& grid) {
-  int sms = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long cols = (R + TCOLS - 1) / TCOLS;
-  strip = MAX_STRIP;
-  while (strip > MIN_STRIP &&
-         cols * ((H + strip - 1) / strip) * B < (long)MIN_BLOCKS * sms)
-    strip /= 2;
-  grid = dim3((unsigned)cols, (H + strip - 1) / strip, B);
-  return err;
-}
 
 // The block's strip bounds.  Returns false, for the whole block alike,
 // when the strip holds no eligible cell; such blocks exit before any
@@ -117,36 +100,6 @@ __device__ __forceinline__ bool strip_bounds(Strip& s, const int* ms,
   s.jt = s.j0 + COLS * (int)threadIdx.x;
   s.warp_walks = s.j0 + COLS * (int)(threadIdx.x & ~31u) <= s.j_last;
   return s.j0 <= s.j_last && s.ilo < s.iend;
-}
-
-// Stages the strip's hap codes (sentinel-masked lane 0) in shared memory
-// and the thread's lane-0 column codes in registers, then syncs the
-// block.
-template <int LANES>
-__device__ __forceinline__ void stage(Strip& s,
-                                      unsigned (&sh)[LANES][MAX_STRIP],
-                                      const unsigned* ch,
-                                      const unsigned* cf,
-                                      const unsigned* cd, int H, int R) {
-  const int row0 = GROUP * s.g_begin, row1 = GROUP * s.g_end;
-#pragma unroll
-  for (int lane = 0; lane < LANES; ++lane) {
-    const unsigned* src = ch + ((size_t)s.b * LANES + lane) * H + s.s0;
-    for (int row = row0 + (int)threadIdx.x; row < row1; row += THREADS) {
-      const int i = s.s0 + row;
-      const bool ok = i >= s.ilo && i < H;
-      sh[lane][row] = ok ? src[row] : (lane == 0 ? ROW_SENTINEL : 0u);
-    }
-  }
-  const size_t at = (size_t)s.b * LANES * R;
-#pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int j = s.jt + c;
-    const bool ok = j <= s.j_last;
-    s.f[c] = ok ? cf[at + j] : COL_SENTINEL;
-    s.r[c] = ok ? cd[at + j] : COL_SENTINEL;
-  }
-  __syncthreads();
 }
 
 // One group of the fast path: loads the group's four lane-0 hap words
@@ -208,61 +161,6 @@ __device__ __forceinline__ unsigned group_fires(unsigned at,
   return fire;
 }
 
-// The rare path of group g: calls visit(i, j, hf, hr) for each cell of
-// the thread's columns in the group's rows with a hit on either strand
-// (hf and hr 0 or 1).  A candidate's other lanes are loaded whatever the
-// lanes before them held (j <= j_last < R, so the reads stay in the
-// row), so they are in flight together: one trip to memory at any k.
-template <int LANES, class Visit>
-__device__ __forceinline__ void rare_group(
-    const Strip& s, unsigned (&sh)[LANES][MAX_STRIP], const unsigned* cf,
-    const unsigned* cd, int H, int R, int g, Visit& visit) {
-  unsigned fm = 0, rm = 0;  // bit GROUP c + q: row q, column c matched
-#pragma unroll
-  for (int q = 0; q < GROUP; ++q) {
-    const unsigned h = sh[0][GROUP * g + q];
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      fm |= (unsigned)(h == s.f[c]) << (GROUP * c + q);
-      rm |= (unsigned)(h == s.r[c]) << (GROUP * c + q);
-    }
-  }
-  for (unsigned cand = fm | rm; cand; cand &= cand - 1) {
-    const int bit = __ffs(cand) - 1;
-    const int row = GROUP * g + bit % GROUP, i = s.s0 + row;
-    const int j = s.jt + bit / GROUP;
-    if (i < s.ilo || i >= H || j > s.j_last) continue;
-    bool hf = (fm >> bit) & 1u, hr = (rm >> bit) & 1u;
-#pragma unroll
-    for (int lane = 1; lane < LANES; ++lane) {
-      const unsigned h = sh[lane][row];
-      const size_t at = ((size_t)s.b * LANES + lane) * R + j;
-      hf &= h == __ldg(cf + at);
-      hr &= h == __ldg(cd + at);
-    }
-    if (hf || hr) visit(i, j, (int)hf, (int)hr);
-  }
-}
-
-// Walks the strip: calls visit(i, j, hf, hr) for each cell of the
-// thread's columns with a hit on either strand.  Every thread of the
-// block calls it; a warp with no eligible column returns at once.
-template <int LANES, class Visit>
-__device__ __forceinline__ void walk(const Strip& s,
-                                     unsigned (&sh)[LANES][MAX_STRIP],
-                                     const unsigned* cf,
-                                     const unsigned* cd, int H, int R,
-                                     Visit&& visit) {
-  if (!s.warp_walks) return;
-  unsigned at =
-      (unsigned)__cvta_generic_to_shared(&sh[0][GROUP * s.g_begin]);
-#pragma unroll 2
-  for (int g = s.g_begin; g < s.g_end; ++g, at += GROUP * sizeof(unsigned)) {
-    if (group_fires(at, s.f, s.r))
-      rare_group<LANES>(s, sh, cf, cd, H, R, g, visit);
-  }
-}
-
 // Adds v over the warp to *out with one atomic from lane 0.  Every lane
 // of the warp must call it.
 __device__ __forceinline__ void warp_add(unsigned long long* out,
@@ -272,53 +170,6 @@ __device__ __forceinline__ void warp_add(unsigned long long* out,
     v += __shfl_down_sync(0xffffffffu, v, off);
   if ((threadIdx.x & 31) == 0 && v) atomicAdd(out, v);
 }
-
-// Writes [blocks of the grid, blocks resident per SM, SMs, strip rows]
-// of kernel's launch on B rows of H x R cells to out (int[4]): the grid
-// runs in blocks / (resident x SMs) waves.  Returns the CUDA error.
-inline int grid_info(const void* kernel, int B, int H, int R, int device,
-                     int* out) {
-  int per_sm = 0, strip = 0;
-  dim3 grid;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, 0);
-  if (err == cudaSuccess) err = plan(B, H, R, device, strip, grid);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount,
-                                 device);
-  out[0] = (int)(grid.x * grid.y * grid.z);
-  out[1] = per_sm;
-  out[3] = strip;
-  return (int)err;
-}
-
-// ---------------------------------------------------------------------------
-// The on-chip walk: hist (both routes), kept_hist, moment and rdd_moment.
-//
-// At the main path's small buckets (H, R <= 2048, where the capstone
-// launches every kernel) a launch of the walk above spends little of its
-// time on the fast path: the launch, the wrapper's fill ops, the staging
-// and, on the warp that holds the read's diagonal, the rare path on every
-// group, whose other lanes came from global memory one candidate at a
-// time (chip_smoke.py's floor split; PERF.md section 6).  The on-chip
-// walk keeps the fast path (group_fires) and the sentinels, and changes:
-// * staging: the block also stages lanes 1..LANES-1 of its TCOLS read
-//   columns, both strands, in dynamic shared memory beside the strip's
-//   hap codes, and the keep-table kernels the strip's bins of their
-//   keep tables (stage_keep), so the rare path reads shared memory only;
-// * columns: each lane's COLS columns are 32 apart (strip_bounds_tile),
-//   so the diagonal's cells of a group fall on 4 lanes, one each;
-// * the grid (plan_tile): the shortest strip whose grid fits in one wave
-//   at TILE_BLOCKS blocks an SM;
-// * outputs: the C entry point zeroes them with one cudaMemsetAsync on
-//   the launch's stream, so the wrapper issues no fill op of its own.
-// ---------------------------------------------------------------------------
-
-// blocks per SM the on-chip walk's launch bounds ask for: 48 registers a
-// thread, none spilled (chip_smoke.py phase 1)
-constexpr int TILE_BLOCKS = 5;
 
 // Shared-memory words of a tile before the kernel's own tables: hap
 // codes [LANES][strip], then read columns [LANES - 1][2][TCOLS] (lanes 1
@@ -335,15 +186,11 @@ inline size_t tile_bytes(int lanes, int strip, int unit) {
   return 4 * tile_words(lanes, strip) + ((own + 15) & ~(size_t)15);
 }
 
-// The on-chip walk's launch on B rows of H x R cells on card `device`:
-// strip, grid and dynamic shared memory.  The strip is the shortest, in
-// steps of MIN_STRIP rows, whose grid runs in one wave (its blocks no
-// more than the SMs hold at once: the `per_sm_regs` a kernel's registers
-// allow, or fewer where shared memory runs out); MAX_STRIP where none
-// does.  A block's time grows with its strip (the warp that holds the
-// read's diagonal takes the rare path on every group of it), so a grid
-// that fits in one wave gains nothing from taller strips and loses a
-// whole block's time to a second wave.
+// The launch on B rows of H x R cells on card `device`: strip, grid and
+// dynamic shared memory.  The strip is the shortest, in steps of
+// MIN_STRIP rows, whose grid runs in one wave (its blocks no more than
+// the SMs hold at once: the `per_sm_regs` a kernel's registers allow, or
+// fewer where shared memory runs out); MAX_STRIP where none does.
 inline cudaError_t plan_tile(int B, int H, int R, int lanes, int unit,
                              int per_sm_regs, int device, int& strip,
                              dim3& grid, size_t& smem) {
@@ -404,11 +251,11 @@ __device__ __forceinline__ Tile<LANES> tile(unsigned* smem, int strip) {
   return t;
 }
 
-// strip_bounds() for the on-chip walk, whose lanes interleave their
-// columns: column c of lane l of warp w is j0 + 128 w + 32 c + l, so that
-// the read's diagonal, which crosses a group's 4 rows on 4 neighbouring
-// columns, lands on 4 lanes, whose rare paths run side by side, not on
-// the 1-2 that hold 4 neighbouring columns each.
+// strip_bounds with the walk's columns: column c of lane l of warp w is
+// j0 + 128 w + 32 c + l, so that the read's diagonal, which crosses a
+// group's 4 rows on 4 neighbouring columns, lands on 4 lanes, whose rare
+// paths run side by side, not on the 1-2 that would hold 4 neighbouring
+// columns each.
 __device__ __forceinline__ bool strip_bounds_tile(Strip& s, const int* ms,
                                                   const int* rlens, int H,
                                                   int R, int k, int strip) {
@@ -417,10 +264,11 @@ __device__ __forceinline__ bool strip_bounds_tile(Strip& s, const int* ms,
   return any;
 }
 
-// stage() into the tile (the thread's lane-0 column codes as
-// strip_bounds_tile lays columns out), and lanes 1..LANES-1 of the
-// block's read columns of both strands (those up to j_last: no other is
-// read); syncs the block.
+// Stages the strip's hap codes (sentinel-masked lane 0) and lanes
+// 1..LANES-1 of the block's read columns of both strands (those up to
+// j_last: no other is read) into the tile, and the thread's lane-0
+// column codes (as strip_bounds_tile lays columns out) in registers;
+// syncs the block.
 template <int LANES>
 __device__ __forceinline__ void stage_tile(Strip& s, const Tile<LANES>& t,
                                            const unsigned* ch,
@@ -465,34 +313,43 @@ constexpr int KEEP_UNIT = 2;
 
 // Stages the strip's bins of row s.b's keep tables (keep_d over
 // j - i + H, keep_a over j + i; W bytes a row) into `bins`: the
-// strip + TCOLS - 1 d-bins, then as many a-bins.  Local d-bin x is
-// j - i + H = x + d0 and local a-bin x is j + i = x + a0; a bin outside
-// [0, W) holds no cell of the strip and stages as 0.  Call it before
-// stage_tile, whose barrier ends it.
+// strip + TCOLS - 1 d-bins, then as many a-bins, or the d-bins alone
+// where keep_a is null.  Local d-bin x is j - i + H = x + d0 and local
+// a-bin x is j + i = x + a0; a bin outside [0, W) holds no cell of the
+// strip and stages as 0.  Call it before stage_tile, whose barrier ends
+// it.
 __device__ __forceinline__ void stage_keep(const Strip& s, int strip, int H,
                                            int W, const uint8_t* keep_d,
                                            const uint8_t* keep_a,
                                            uint8_t* bins) {
   const int span = strip + TCOLS - 1;
   const int d0 = s.j0 - s.s0 - (strip - 1) + H, a0 = s.j0 + s.s0;
-  const uint8_t* row_d = keep_d + (size_t)s.b * W;
-  const uint8_t* row_a = keep_a + (size_t)s.b * W;
+  const size_t row = (size_t)s.b * W;
   for (int x = threadIdx.x; x < span; x += THREADS) {
-    bins[x] = d0 + x >= 0 && d0 + x < W ? row_d[d0 + x] : 0;
-    bins[span + x] = a0 + x < W ? row_a[a0 + x] : 0;
+    bins[x] = d0 + x >= 0 && d0 + x < W ? keep_d[row + (d0 + x)] : 0;
+    if (keep_a) bins[span + x] = a0 + x < W ? keep_a[row + (a0 + x)] : 0;
   }
+}
+
+// Local d-bin of cell (i, j) of the strip: the index of its bin in a
+// strip-local diagonal table, as stage_keep lays d-bins out.
+__device__ __forceinline__ int d_bin(const Strip& s, int strip, int i,
+                                     int j) {
+  return (j - s.j0) - (i - s.s0) + strip - 1;
 }
 
 // Whether the keep tables keep cell (i, j) of the strip: its d-bin or
 // its a-bin set in stage_keep's bins.
 __device__ __forceinline__ bool kept(const Strip& s, int strip,
                                      const uint8_t* bins, int i, int j) {
-  const int di = i - s.s0, dj = j - s.j0;
-  return bins[dj - di + strip - 1] | bins[strip + TCOLS - 1 + dj + di];
+  return bins[d_bin(s, strip, i, j)] |
+         bins[strip + TCOLS - 1 + (j - s.j0) + (i - s.s0)];
 }
 
-// rare_group on the tile, with strip_bounds_tile's columns: every lane
-// of a candidate is read from shared memory.
+// The rare path of group g: calls visit(i, j, hf, hr) for each cell of
+// the thread's columns in the group's rows with a hit on either strand
+// (hf and hr 0 or 1); every lane of a candidate is read from shared
+// memory.
 template <int LANES, class Visit>
 __device__ __forceinline__ void rare_tile(const Strip& s,
                                           const Tile<LANES>& t, int H,
@@ -524,7 +381,9 @@ __device__ __forceinline__ void rare_tile(const Strip& s,
   }
 }
 
-// walk() on the tile.
+// Walks the strip: calls visit(i, j, hf, hr) for each cell of the
+// thread's columns with a hit on either strand.  Every thread of the
+// block calls it; a warp with no eligible column returns at once.
 template <int LANES, class Visit>
 __device__ __forceinline__ void walk_tile(const Strip& s,
                                           const Tile<LANES>& t, int H,
@@ -539,8 +398,9 @@ __device__ __forceinline__ void walk_tile(const Strip& s,
 }
 
 // Writes [blocks, blocks resident per SM, SMs, strip rows, dynamic shared
-// bytes] of an on-chip walk kernel's launch (its strip-local tables
-// `unit` bytes a bin) on B rows of H x R cells to out (int[5]).
+// bytes] of a kernel's launch (its strip-local tables `unit` bytes a
+// bin) on B rows of H x R cells to out (int[5]): the grid runs in
+// blocks / (resident x SMs) waves.  Returns the CUDA error.
 inline int grid_info_tile(const void* kernel, int B, int H, int R,
                           int lanes, int unit, int device, int* out) {
   int per_sm = 0, resident = 0, strip = 0;
@@ -568,27 +428,10 @@ inline int grid_info_tile(const void* kernel, int B, int H, int R,
 }  // namespace vtw
 
 // Instantiates KERNEL for the lane count of k (2..5 words for k = 10..40)
-// and launches it on the strip grid of B rows; the strip's height goes to
-// the kernel as its last argument.
-#define VTW_LAUNCH_BY_LANES(lanes, KERNEL, B, H, R, device, stream, ...)   \
-  do {                                                                     \
-    int strip_ = 0;                                                        \
-    dim3 grid_;                                                            \
-    const cudaError_t plan_ = vtw::plan(B, H, R, device, strip_, grid_);   \
-    if (plan_ != cudaSuccess) return (int)plan_;                           \
-    switch (lanes) {                                                       \
-      case 2: KERNEL<2><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
-      case 3: KERNEL<3><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
-      case 4: KERNEL<4><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
-      case 5: KERNEL<5><<<grid_, vtw::THREADS, 0, stream>>>(__VA_ARGS__, strip_); break; \
-      default: return (int)cudaErrorInvalidValue;                          \
-    }                                                                      \
-  } while (0)
-
-// VTW_LAUNCH_BY_LANES for an on-chip walk kernel whose strip-local
-// tables take `unit` bytes a bin: plans the tile grid (each instance's
-// register residency asked once) and launches with its dynamic shared
-// memory.
+// whose strip-local tables take `unit` bytes a bin, plans its grid (each
+// instance's register residency asked once) and launches it with its
+// dynamic shared memory; the strip's height goes to the kernel as its
+// last argument.
 #define VTW_LAUNCH_TILE(lanes, unit, KERNEL, B, H, R, device, stream, ...)  \
   do {                                                                     \
     switch (lanes) {                                                       \

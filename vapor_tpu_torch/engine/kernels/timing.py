@@ -2,20 +2,20 @@
 wrappers, at the shapes the main path launches them at.
 
 A wrapper call is host work (argument checks, output allocation, the
-ctypes call) and device work (the outputs' zero fill, by the wrapper or
-by the C entry point's memset, and the kernel).  At
-the main path's small buckets the two are of one size, so a call timed
-on CUDA events alone (``call_ms``) does not say which of them a kernel
-loses its time to.  Here:
+ctypes call) and device work (the C entry point's memset of the outputs
+and the kernel; the wrappers fill nothing).  At the main path's small
+buckets the two are of one size, so a call timed on CUDA events alone
+(``call_ms``) does not say which of them a kernel loses its time to.
+Here:
 
 * ``capture`` records, during a main-path run, the arguments of the
   first call of each wrapper at each (name, route, H, R), the keys of
   ``kernels.LAUNCH_SHAPES``;
 * ``tile_rows`` makes a batch of B rows from such a call's real rows;
 * ``device_ms`` times the kernel's C entry point on the pointers its
-  wrapper passes, with the wrapper's output fill, taking turns over two
-  batches, behind a spin kernel that holds the stream until the host has
-  queued every call, so that no host gap falls inside the window;
+  wrapper passes, taking turns over two batches, behind a spin kernel
+  that holds the stream until the host has queued every call, so that no
+  host gap falls inside the window;
 * ``host_us`` times the host side of a wrapper call, ``call_ms`` a whole
   call.
 
@@ -26,7 +26,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -102,12 +102,9 @@ def rolled(args: Sequence) -> tuple:
 
 class _Launch:
     """The launch of one wrapper call, recorded instead of made: the
-    kernel's name and route, the arguments `_launch` got (the same
-    pointers; the card's index apart), and the outputs' fills: each
-    output buffer with its
-    initial value (None for zeros), as the wrapper left it; none where
-    the C entry point zeroes the outputs itself (kernels.ZEROED_BY_ENTRY),
-    whose memset is then timed with the kernel."""
+    kernel's name and route and the arguments `_launch` got (the same
+    pointers; the card's index apart).  The C entry point zeroes the
+    outputs itself, so its memset is timed with the kernel."""
 
     def __init__(self, call: Callable):
         seen = []
@@ -118,7 +115,7 @@ class _Launch:
         real = kernels._launch
         kernels._launch = record
         try:
-            outs = call()
+            call()
         finally:
             kernels._launch = real
         if len(seen) != 1:
@@ -130,21 +127,6 @@ class _Launch:
         self.index = ch.get_device()
         self.pointers = [a.data_ptr() if isinstance(a, torch.Tensor)
                          else a for a in self.args]
-        self.fills = []
-        if (self.name, self.route) in kernels.ZEROED_BY_ENTRY:
-            return
-        for out in (outs if isinstance(outs, tuple) else (outs,)):
-            base = out if out._base is None else out._base
-            if not any(base is b for b, _ in self.fills):
-                self.fills.append((base, base.clone() if base.any()
-                                   else None))
-
-    def fill(self) -> None:
-        for base, init in self.fills:
-            if init is None:
-                base.zero_()
-            else:
-                base.copy_(init)
 
 
 def _window_ms(steps: Sequence[Callable], n: int) -> float:
@@ -174,18 +156,15 @@ def _window_ms(steps: Sequence[Callable], n: int) -> float:
                        f"spin of {cycles // 2} cycles")
 
 
-def device_ms(calls: Sequence[Callable], n: int = 50
-              ) -> Tuple[float, float]:
-    """(ms of one call's device work, ms of its fill alone) for wrapper
-    calls on CUDA tensors, one per input batch (at least two, so that
-    consecutive calls read different memory): each call's launch is
-    recorded once, with its arguments and outputs, then n steps of fill +
-    C entry point (the pointers the wrapper passes) take turns over the
-    batches in one window, and n fills alone in another (0.0 where the
-    wrapper fills nothing: the entry point's memset is in the first).
-    The batches are small beside the card's 50 MB L2, which holds them
-    between steps as it holds the codes the engine's glue has just
-    written on the main path: L2 is warm."""
+def device_ms(calls: Sequence[Callable], n: int = 50) -> float:
+    """ms of one call's device work for wrapper calls on CUDA tensors,
+    one per input batch (at least two, so that consecutive calls read
+    different memory): each call's launch is recorded once, with its
+    arguments, then n steps of the C entry point (the pointers the
+    wrapper passes; its memset of the outputs included) take turns over
+    the batches in one window.  The batches are small beside the card's
+    50 MB L2, which holds them between steps as it holds the codes the
+    engine's glue has just written on the main path: L2 is warm."""
     if len(calls) < 2:
         raise ValueError("want at least two input batches")
     launches = [_Launch(call) for call in calls]
@@ -194,16 +173,12 @@ def device_ms(calls: Sequence[Callable], n: int = 50
     stream = torch.cuda.current_stream(index).cuda_stream
 
     def step(launch):
-        launch.fill()
         err = fn(*launch.pointers, index, stream)
         if err:
             raise RuntimeError(f"{launch.name} kernel launch failed: CUDA "
                                f"error {err}")
 
-    total = _window_ms([functools.partial(step, x) for x in launches], n)
-    if not launches[0].fills:
-        return total, 0.0
-    return total, _window_ms([x.fill for x in launches], n)
+    return _window_ms([functools.partial(step, x) for x in launches], n)
 
 
 def host_us(calls: Sequence[Callable], n: int = 50) -> float:

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""On-card smoke run of vapor_tpu_torch: builds its six CUDA kernels,
-holds each against its plain PyTorch version, scores a synthetic bed
+"""On-card smoke run of vapor_tpu_torch: builds its six dot-plot CUDA
+kernels and its three glue kernels (row_codes, kept_tables,
+intercept_z), holds each against its plain PyTorch version, scores a
+synthetic bed
 worklist (DEL, INV and tandem DUP) and a VCF worklist (DISDUP, DUP_INV
 and a duplication-bearing complex event) through the CLI on the card,
 and checks the output against the CPU and numpy-oracle runs.
@@ -12,13 +14,16 @@ registers, shared memory, spills; the on-chip walk's dynamic shared
 memory), 2 input, 3 kernel parity and timing (at each mode's event
 sizes, every kernel also on dense-hit repeat rows at its reported shape,
 hist by both routes, with its grid's waves, and hist's self-stats route
-on the window refiner's row of the largest DUP alt hap; at the reported
+on the window refiner's row of the largest DUP alt hap; the glue kernels
+bit for bit on the event rows and on crafted rows; at the reported
 shapes also the device time apart from host work, the host time of a
 wrapper call and the bound share; after phase 9, the same at every
 (route, H, R) that phase 4's bed run and phase 7c's capstone run
-launched, on their rows, each kernel's launch-weighted time over its
-bound in each run, and the floor split of the on-chip walk's routes at
-the capstone's most-launched shape), 4 end to end on
+launched, on their rows, the glue kernels' beside their plain torch-op
+sequences' (the parent's path) device and host time, each kernel's
+launch-weighted time over its bound in each run, and the floor split of
+the on-chip walk's routes at the capstone's most-launched shape), 4 end
+to end on
 cuda through the default backend (cross-event batching, the device
 window refiner) and through torch-nobatch, byte-equal (bed, then vcf),
 5 CPU and oracle cross-check of the default backend, 6 scale-out (6a the
@@ -46,7 +51,7 @@ equal to the CPU's in every mode, on phase 3's rows, and its ms per read
 and peak memory at H = R = 16384, on random sequence and on a 2-bp
 tandem repeat; 9b every golden through torch-v1, byte-equal; 9c phase
 4's bed worklist through torch-v1, byte-equal to phase 4, hist launched
-by its window refiner), then the kernel list,
+by its window refiner), then the list of the nine kernels,
 whose launches count phases 4, 7, 8 and 9, and whose device_ms,
 bound_share, lost_ms_bed / lost_ms_capstone and buckets come from phase
 3 (engine/kernels/timing.py).  The last line of stdout is
@@ -75,7 +80,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZES = (400, 3000, 9500)     # smallest, middle and largest DEL/INV bodies
 DUP_SIZES = (400, 3000, 6000)  # smallest, middle and largest DUP bodies
 L2_BYTES = 50e6               # the H100's L2 cache
-# where each kernel's Pallas counterpart reaches pl.pallas_call
+# where each kernel's Pallas counterpart reaches pl.pallas_call, and for
+# the glue kernels the JAX function that XLA fuses into the main path
 REPLACES = {
     "hist": "experiments/pallas_fused.py:268",
     "left_hist": "experiments/pallas_fused.py:420",
@@ -83,7 +89,13 @@ REPLACES = {
     "rdd_moment": "experiments/pallas_fused.py:633",
     "moment": "experiments/pallas_fused.py:734",
     "moment2": "experiments/pallas_fused.py:851",
+    "row_codes": "vapor_tpu/engine/fused.py:166",
+    "kept_tables": "vapor_tpu/engine/fused.py:471",
+    "intercept_z": "vapor_tpu/engine/fused.py:509",
 }
+# calls of a glue kernel's plain torch-op sequence whose device and host
+# time phase 3 takes on the card
+PLAIN_STEPS = 10
 # the kernel each timed shape is reported at: the largest body, k = 10
 REPORT_AT = {"hist": SIZES[-1], "left_hist": SIZES[-1],
              "moment": SIZES[-1], "moment2": SIZES[-1],
@@ -103,8 +115,15 @@ REPEAT_AT = {"hist": (12544, 12544), "left_hist": (12544, 1024),
 # the capstone's widths on CAPSTONE_CONTIGS of its 24 contigs
 CORPUS_CONTIGS, CORPUS_LEN, CORPUS_SEED = 4, 400000, 20260821
 CAPSTONE_CONTIGS = 4
+# the kernels that every rdd path (vcf mode's duplications, pdf) launches
+RDD_KERNELS = ("hist", "kept_hist", "rdd_moment", "row_codes", "kept_tables",
+               "intercept_z")
 # phase 8a: the kernels that the goldens of fixtures/golden/ launch
-GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2")
+GOLDEN_KERNELS = ("hist", "left_hist", "moment", "moment2", "row_codes",
+                  "kept_tables")
+# the kernels a torch-v1 run launches: its window refiner's self-stats
+# rows (row_codes, then hist's self-stats route)
+V1_KERNELS = ("hist", "row_codes")
 # every (kernel, route), each on csrc/walk.cuh's on-chip walk, whose
 # device time at the capstone's most-launched shape phase 3 splits
 # (floor_split)
@@ -332,6 +351,95 @@ def _compare(name, body, k, args, hap_lens, hits, reps, report):
         entry.update(small_ms=got["call_ms"], small_shape=got["shape"])
 
 
+def _glue_work(name, args, kwargs, got):
+    """(bytes, operations) of one glue wrapper call (engine/kernels/
+    roofline.py)."""
+    from vapor_tpu_torch.engine.kernels import roofline
+    if name == "row_codes":
+        hap_index = args[4] if len(args) > 4 else kwargs.get("hap_index")
+        return roofline.codes_work(*args[:3], got, args[3], hap_index)
+    if name == "kept_tables":
+        return roofline.kept_tables_work(args[0], got)
+    return roofline.intercept_work(args[0], got)
+
+
+def _glue_measure(name, args, reps, label, report, kwargs=None,
+                  timed=False):
+    """Holds one glue kernel against its plain version (every output
+    element equal: the kernel's bits are the torch ops') on the wrapper's
+    arguments, times the kernel call by call (call_ms) and the plain
+    version's call (plain_ms), and adds its error to report[name].  With
+    `timed`, also the device time apart from host work (taking turns
+    over args and the same rows rolled by one), the host µs of a wrapper
+    call and the bound share, and the device ms and host µs of the plain
+    torch-op sequence on the card, which is what the main path ran
+    before the kernel (plain_device_ms: its ops' device time under
+    torch.profiler, timing.busy_ms: a spin window does not hold its host
+    work; plain_host_us).  Returns the numbers as a dict."""
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.kernels import roofline, timing
+    kwargs = kwargs or {}
+    kern = functools.partial(getattr(kernels, name), *args, **kwargs)
+    plain = functools.partial(getattr(kernels, f"{name}_plain"), *args,
+                              **kwargs)
+    got = kern()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = plain()
+    stop.record()
+    torch.cuda.synchronize()
+    _require(len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want)),
+        f"{name} on {label}: outputs of another type or shape than its "
+        f"plain version's")
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    _require(err == 0, f"{name} differs from its plain version on {label}: "
+             f"max |diff| {err}")
+    entry = report.setdefault(name, {"max_abs_err": 0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    out = {"max_abs_err": err, "call_ms": timing.call_ms(kern, reps),
+           "plain_ms": start.elapsed_time(stop)}
+    out["bound_ms"], out["bound_by"] = roofline.bound(
+        *_glue_work(name, args, kwargs, got))
+    line = (f"parity {name:11s} {label}: equal; kernel "
+            f"{out['call_ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, "
+            f"bound {out['bound_ms']:.4f} ms")
+    if timed:
+        second = timing.rolled(args)
+        calls = [kern, functools.partial(getattr(kernels, name), *second,
+                                         **kwargs)]
+        plains = [plain, functools.partial(getattr(kernels, f"{name}_plain"),
+                                           *second, **kwargs)]
+        out["device_ms"] = timing.device_ms(calls)
+        out["host_us"] = timing.host_us(calls)
+        out["bound_share"] = out["bound_ms"] / out["device_ms"]
+        out["plain_device_ms"] = timing.busy_ms(plains, PLAIN_STEPS)
+        out["plain_host_us"] = timing.host_us(plains, PLAIN_STEPS)
+        line += (f"; device {out['device_ms']:.4f} ms, host "
+                 f"{out['host_us']:.1f} us a call, bound share "
+                 f"{out['bound_share']:.3f}; torch ops (the parent's path) "
+                 f"device {out['plain_device_ms']:.4f} ms, host "
+                 f"{out['plain_host_us']:.1f} us")
+    print(line, flush=True)
+    return out
+
+
+def _glue_tables(hs, specs, H, R, label, reps, report):
+    """kept_tables of an (H, R) batch's histograms on the card, held
+    against its plain version; the tables."""
+    from vapor_tpu_torch.engine import kernels
+    args = (tuple(hs), tuple(specs), H, R)
+    _glue_measure("kept_tables", args, reps, label, report)
+    return kernels.kept_tables(*args)
+
+
+def _shape(codes):
+    """The (H, R) of a batch's codes (ch, cf, ...)."""
+    return codes[0].shape[2], codes[1].shape[2]
+
+
 def kernel_parity(fa, bam, events, reps: int):
     """Each kernel against its plain version at the smallest, middle and
     largest event sizes of its mode, k = 10 and 40; every output integer
@@ -339,7 +447,7 @@ def kernel_parity(fa, bam, events, reps: int):
     import torch
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.fused import (batch_from_numpy, intercept_z,
-                                              kept_table, row_codes)
+                                              row_codes)
     dev = torch.device("cuda")
     report = {}
 
@@ -347,9 +455,15 @@ def kernel_parity(fa, bam, events, reps: int):
         haps, fw, rlens, ms = _event_rows(fa, bam, ev, mode)
         h, r, rl, m, _ = batch_from_numpy(haps, fw, rlens, ms,
                                           k // 10 - 1, dev)
+        label = f"{ev[0]} body {ev[2] - ev[1]} ({mode} rows) k={k}"
+        # the rows' one hap, as the batching backend uploads it
+        index = torch.zeros(r.shape[0], dtype=torch.int64, device=dev)
+        _glue_measure("row_codes", (h[:1].contiguous(), r, rl, k, index),
+                      reps, label, report)
         codes = (*row_codes(h, r, rl, k), m, rl, k)
         h_d, h_a, scal = kernels.hist_plain(*codes)
-        kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
+        kd, ka = _glue_tables((h_d, h_a), ((10, False), (10, False)),
+                              *_shape(codes), label, reps, report)
         return codes, _hap_lens(haps), int(scal[:, :2].sum()), h_d, kd, ka
 
     def find(svtype, body):
@@ -362,9 +476,11 @@ def kernel_parity(fa, bam, events, reps: int):
                                                        "m1b", k)
             codes_d, n_d, hits_d, h_d, kd_d, ka_d = rows(find("DEL", body),
                                                          "del", k)
-            kd50 = kept_table(h_d, 10, 50, True)
-            ka50 = kept_table(kernels.left_hist_plain(*codes_d, kd50),
-                              10, 50, True)
+            kd50, = _glue_tables((h_d,), ((50, True),), *_shape(codes_d),
+                                 f"DEL {body} k={k}", reps, report)
+            ka50, = _glue_tables((kernels.left_hist_plain(*codes_d, kd50),),
+                                 ((50, True),), *_shape(codes_d),
+                                 f"DEL {body} k={k} left", reps, report)
             runs = {
                 "hist": (codes_i, n_i, hits_i),
                 "moment": ((*codes_i, kd_i, ka_i, False), n_i, hits_i),
@@ -386,7 +502,9 @@ def kernel_parity(fa, bam, events, reps: int):
             codes, lens, hits, _, kd, ka = rows(find("DUP", body), "rdd",
                                                 k)
             h_kept = kernels.kept_hist_plain(*codes, kd, ka)
-            found, z = intercept_z(h_kept, codes[0].shape[2])
+            _glue_measure("intercept_z", (h_kept, *_shape(codes)), reps,
+                          f"DUP {body} k={k}", report)
+            found, z = intercept_z(h_kept, *_shape(codes))
             z = torch.where(found, z + 2 * codes[3], 0).to(torch.int32)
             print(f"intercepts at DUP body {body}, k={k}: "
                   f"{int(found.sum())} of {found.numel()} rows",
@@ -396,6 +514,108 @@ def kernel_parity(fa, bam, events, reps: int):
             _compare("rdd_moment", body, k, (*codes, kd, ka, z), lens, hits,
                      reps, report)
     return report
+
+
+def _crafted_hist(name: str):
+    """(W, H, histogram) rows for the intercept fit's branches (the cases
+    of tests/test_torch_fused.py)."""
+    import numpy as np
+    W, H = 640, 256
+    h = np.zeros(W, np.int32)
+    if name == "one_value":          # hi == lo: every value in bin 10
+        h[300] = 7
+    elif name == "one_bin":          # one first-level bin wins outright
+        h[[100, 420]] = 1
+        h[250:256] = [3, 1, 4, 1, 5, 9]
+    elif name == "sub_hi_eq_lo":     # the winning bin holds one value
+        h[[100, 300, 420]] = [2, 9, 2]
+    elif name == "two_way_tie":      # two first-level bins, equal totals
+        h[[100, 101, 420]] = [3, 2, 5]
+    elif name == "sub_tie":          # one winning bin, its sub-bins tie
+        h[[100, 420]] = 1
+        h[[250, 259]] = 6
+    elif name == "even_median":      # ranks n/2 and n/2 + 1 differ
+        h[[10, 630]] = 1
+        h[[286, 292, 293, 306]] = [1, 2, 2, 1]
+    elif name == "negative_values":  # values v = bin - H below zero
+        h[[20, 40, 41, 42, 200]] = [1, 5, 6, 2, 1]
+    return W, H, h
+
+
+CRAFTED = ("empty", "one_value", "one_bin", "sub_hi_eq_lo", "two_way_tie",
+           "sub_tie", "even_median", "negative_values")
+
+
+def glue_crafted(seed: int, reps: int, report) -> None:
+    """The glue kernels against their plain versions on crafted rows:
+    row_codes on every byte of the engine's alphabet, rows with rlen 0,
+    rlen < k and rlen = R, fused_batch's pad rows (HAP_PAD hap, READ_PAD
+    read, rlen 1) and an index-expanded hap, at k = 10..40 (every
+    column, the ones past rlen - k included); kept_tables on all-zero
+    rows, one bin, a cluster that runs to the last bin, clusters gap - 1
+    and gap apart, a fallback tie of two largest clusters, and random
+    sparse rows at the largest width, four tables in one launch; and
+    intercept_z on found, tied and empty rows (CRAFTED) and a batch of
+    all of them."""
+    import numpy as np
+    import torch
+    from vapor_tpu_torch.engine.constants import (HAP_PAD, READ_PAD,
+                                                  hist_width)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGTNacgtnXx=", np.uint8)
+    H, R, B = 512, 384, 8
+    haps = alphabet[rng.integers(0, alphabet.size, (B, H))]
+    reads = alphabet[rng.integers(0, alphabet.size, (B, R))]
+    rlens = rng.integers(50, R, B).astype(np.int32)
+    rlens[:4] = [0, 7, R, 1]
+    haps[3], reads[3] = HAP_PAD, READ_PAD        # a pad row
+    haps[4, H - 100:] = HAP_PAD
+    for b in range(B):
+        reads[b, max(rlens[b], 0):] = READ_PAD
+    h, r, rl = (torch.from_numpy(x).to(dev) for x in (haps, reads, rlens))
+    index = torch.from_numpy(rng.integers(0, 3, B)).to(dev)
+    for k in (10, 20, 30, 40):
+        _glue_measure("row_codes", (h, r, rl, k), reps,
+                      f"crafted rows k={k}", report)
+        _glue_measure("row_codes", (h[:3].contiguous(), r, rl, k, index),
+                      reps, f"crafted rows, hap_index, k={k}", report)
+
+    W = 640
+    rows = np.zeros((8, W), np.int32)
+    rows[1, 321] = 4                                  # one bin
+    rows[2, [600, 610, 620, 639]] = [3, 1, 2, 9]      # to the last bin
+    rows[3, [100, 109, 200, 210]] = [30, 30, 30, 30]  # gap - 1 and gap
+    rows[4, [50, 300]] = [20, 20]                     # a fallback tie
+    for b in range(5, 8):
+        idx = rng.integers(0, W, 40 * b)
+        np.add.at(rows[b], idx, rng.integers(1, 30, idx.size))
+    hs = [torch.from_numpy(np.roll(rows, t, 0)).to(dev) for t in range(4)]
+    for specs in (((10, False),), ((50, True),),
+                  ((10, False), (50, True), (10 ** 6, True), (0, False))):
+        _glue_tables(hs[:len(specs)], specs, 256, 256, f"crafted rows "
+                     f"W={W} {specs}", reps, report)
+    W = hist_width(16384, 16384)
+    big = np.zeros((4, W), np.int32)
+    for b in range(4):
+        idx = rng.integers(0, W, 2000 * (b + 1))
+        np.add.at(big[b], idx, rng.integers(1, 5, idx.size))
+    big[0] = 0
+    big[1, W - 1] = 70
+    t = torch.from_numpy(big).to(dev)
+    _glue_tables((t, t, t), ((10, False), (50, True), (3, True)), 16384,
+                 16384, f"sparse rows W={W}", reps, report)
+
+    crafted = np.stack([_crafted_hist(n)[2] for n in CRAFTED])
+    for n, row in zip(CRAFTED, crafted):
+        _glue_measure("intercept_z", (torch.from_numpy(row[None]).to(dev),
+                                      256, 256), reps, f"crafted {n}",
+                      report)
+    _glue_measure("intercept_z", (torch.from_numpy(crafted).to(dev), 256,
+                                  256), reps, "the crafted rows as one batch",
+                  report)
+    _glue_measure("intercept_z", (t, 16384, 16384), reps,
+                  f"sparse rows W={W}", report)
 
 
 def repeat_parity(seed: int, reps: int, report) -> None:
@@ -423,8 +643,8 @@ def repeat_parity(seed: int, reps: int, report) -> None:
         codes = (*row_codes(h, r, rl, k), m, rl, k)
         h_d, h_a, scal = kernels.hist_plain(*codes)
         hits = int(scal[:, :2].sum())
-        kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
-        kd50 = kept_table(h_d, 10, 50, True)
+        kd, ka = (kept_table(x, 10, 10, False, H, R) for x in (h_d, h_a))
+        kd50 = kept_table(h_d, 10, 50, True, H, R)
         if name == "hist":
             args = ()
         elif name == "left_hist":
@@ -435,11 +655,11 @@ def repeat_parity(seed: int, reps: int, report) -> None:
             args = (kd, ka, False)
         elif name == "moment2":
             ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50,
-                              True)
+                              True, H, R)
             args = (kd, ka, kd50, ka50)
         else:
             found, z = intercept_z(kernels.kept_hist_plain(*codes, kd, ka),
-                                   H)
+                                   H, R)
             args = (kd, ka, torch.where(found, z + 2 * m, 0).to(torch.int32))
         got = _measure(name, (*codes, *args), _hap_lens(batch[0]), hits,
                        reps, "repeat")
@@ -533,7 +753,8 @@ def bucket_parity(runs, reps: int, report) -> None:
     from vapor_tpu_torch.engine import kernels
     from vapor_tpu_torch.engine.kernels import build, roofline, timing
     device, bound = {}, {}
-    for key in sorted(set(runs["bed"].shapes) | set(runs["capstone"].shapes)):
+    for key in sorted(x for x in set(runs["bed"].shapes) |
+                      set(runs["capstone"].shapes) if x[1] != "glue"):
         name, route, H, R = key
         src = "bed" if key in runs["bed"].shapes else "capstone"
         _require(key in runs[src].args, f"{key}: launched in the {src} run "
@@ -562,7 +783,8 @@ def bucket_parity(runs, reps: int, report) -> None:
                                    "bound_ms", "bound_by", "bound_share",
                                    "plain_ms", "l2")}})
     for src, run in runs.items():
-        lost = roofline.lost_ms(run.shapes, device, bound)
+        lost = roofline.lost_ms({x: n for x, n in run.shapes.items()
+                                 if x[1] != "glue"}, device, bound)
         for name, route in [(x, "score") for x in kernels.NAMES] + \
                 [("hist", "selfstats")]:
             keys = [x for x in run.shapes if x[:2] == (name, route)]
@@ -580,6 +802,86 @@ def bucket_parity(runs, reps: int, report) -> None:
                   flush=True)
     print(f"phase 3 buckets: {len(device)} shapes, each equal to its plain "
           f"version", flush=True)
+
+
+def _rows_of(name: str, args) -> int:
+    """The batch rows of a glue wrapper's call."""
+    return (args[1] if name == "row_codes" else
+            args[0][0] if name == "kept_tables" else args[0]).shape[0]
+
+
+def glue_bucket_parity(runs, reps: int, report) -> None:
+    """The glue kernels at every (H, R) that the bed worklist's run or the
+    capstone's launched them at, on the arguments of each run's own first
+    call there (a shape both runs launched is measured on each run's
+    rows: the two runs' batches differ in rows), as the main path made
+    them: held equal to the plain version, the device time apart from
+    host work, host µs, bound and bound share, and the plain torch-op
+    sequence's device ms and host µs on the card (_glue_measure).  Then
+    each glue kernel's launch-weighted time over its bound in each run
+    (roofline.lost_ms), its launch-weighted bound share, and the
+    launch-weighted device ms of the kernel and of the torch ops, each
+    run weighted by the times on its own rows.  The kernel's headline
+    numbers are those of the capstone's most-launched shape, on the
+    capstone's rows."""
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.kernels import roofline
+    for src, run in runs.items():
+        device, bound, plain = {}, {}, {}
+        shapes = {x: n for x, n in run.shapes.items() if x[1] == "glue"}
+        for key in sorted(shapes):
+            name, _, H, R = key
+            _require(key in run.args, f"{key}: launched in the {src} run "
+                     f"but no call recorded")
+            args, kwargs = run.args[key]
+            B = _rows_of(name, args)
+            got = _glue_measure(name, args, reps, f"glue bucket H={H} R={R} "
+                                f"B={B} ({src} rows; {shapes[key]} "
+                                f"launches)", report, kwargs, timed=True)
+            device[key], bound[key] = got["device_ms"], got["bound_ms"]
+            plain[key] = got["plain_device_ms"]
+            report[name].setdefault("buckets", []).append({
+                "route": "glue", "H": H, "R": R, "B": B, "rows": src,
+                "launches": shapes[key],
+                **{x: got[x] for x in ("device_ms", "call_ms", "host_us",
+                                       "bound_ms", "bound_by",
+                                       "bound_share", "plain_ms",
+                                       "plain_device_ms",
+                                       "plain_host_us")}})
+        lost = roofline.lost_ms(shapes, device, bound)
+        for name in kernels.GLUE_NAMES:
+            keys = [x for x in shapes if x[0] == name]
+            _require(keys, f"the {src} run never launched {name}")
+            entry = report[name]
+            entry[f"lost_ms_{src}"] = lost[name, "glue"]
+            entry[f"bound_share_{src}"] = sum(
+                shapes[x] * bound[x] for x in keys) / sum(
+                shapes[x] * device[x] for x in keys)
+            entry[f"device_ms_{src}"] = sum(shapes[x] * device[x]
+                                            for x in keys)
+            entry[f"plain_device_ms_{src}"] = sum(shapes[x] * plain[x]
+                                                  for x in keys)
+            print(f"phase 3 glue buckets {name}: {src} run, "
+                  f"{sum(shapes[x] for x in keys)} launches at {len(keys)} "
+                  f"shapes, kernel {entry[f'device_ms_{src}']:.3f} ms of "
+                  f"device time ({entry[f'lost_ms_{src}']:.3f} ms over the "
+                  f"bound, launch-weighted bound share "
+                  f"{entry[f'bound_share_{src}']:.3f}); the torch ops "
+                  f"{entry[f'plain_device_ms_{src}']:.3f} ms", flush=True)
+    for name in kernels.GLUE_NAMES:
+        entry = report[name]
+        top = max((x for x in entry["buckets"] if x["rows"] == "capstone"),
+                  key=lambda x: (x["launches"], x["H"], x["R"]))
+        entry.update({x: top[x] for x in (
+            "device_ms", "call_ms", "host_us", "bound_ms", "bound_by",
+            "bound_share", "plain_ms", "plain_device_ms", "plain_host_us")},
+            ms=top["call_ms"],
+            shape=f"B={top['B']} H={top['H']} R={top['R']} (the capstone's "
+                  f"most-launched shape, its rows)")
+    print(f"phase 3 glue buckets: "
+          f"{sum(len(report[x]['buckets']) for x in kernels.GLUE_NAMES)} "
+          f"(shape, run) pairs, each equal to its plain version",
+          flush=True)
 
 
 def floor_split(runs, report) -> None:
@@ -721,12 +1023,13 @@ def _timed_run(label, counted, *cli_args, record=None, **cli_kw):
              f"{sum(refiner.values())} self-stats launches")
     print(f"{label} window refiner: {band}; self-stats launches of hist by "
           f"H = R: {refiner}", flush=True)
-    for name in kernels.NAMES:
+    for name in kernels.ALL_NAMES:
         by = ", ".join(f"{H}x{R}: {n}" for (x, route, H, R), n
                        in sorted(shapes.items())
-                       if x == name and route == "score")
+                       if x == name and route in ("score", "glue"))
         if by:
-            print(f"{label} score launches of {name} by H x R: {by}",
+            kind = "glue" if name in kernels.GLUE_NAMES else "score"
+            print(f"{label} {kind} launches of {name} by H x R: {by}",
                   flush=True)
     return rows, wall, launches
 
@@ -770,7 +1073,7 @@ def codec_phase(tmp, fa, bam, bed, events, rows, wall) -> None:
         n_records += len(got)
     _require(n_records > 0, "no records in the event regions")
     got, nb_wall, launches = _timed_run(
-        "bed index-less", kernels.NAMES, "bed", fa, plain_bam, bed,
+        "bed index-less", kernels.ALL_NAMES, "bed", fa, plain_bam, bed,
         os.path.join(d, "out.vapor"))
     _require(got == rows, "bed on the index-less BAM differs from phase 4")
     print(f"phase 6a codec: native decode of the index-less BAM, "
@@ -791,7 +1094,7 @@ def _launches_in(stderr: str):
     """Kernel launches summed over the --trace reports in stderr, and the
     number of reports."""
     from vapor_tpu_torch.engine import kernels
-    total = dict.fromkeys(kernels.NAMES, 0)
+    total = dict.fromkeys(kernels.ALL_NAMES, 0)
     for name, n in re.findall(r"^kernel (\w+) launches=(\d+)$", stderr,
                               re.M):
         total[name] += int(n)
@@ -832,8 +1135,8 @@ def shards_phase(tmp, seed: int) -> None:
         contigs = sorted({x.split("\t")[0] for x in fh})
     _require(len(contigs) == 4, f"contigs {contigs}")
     plain_out = os.path.join(d, "plain.vapor")
-    rows, wall, _ = _timed_run("4-contig bed", kernels.NAMES, "bed", fa, bam,
-                               bed, plain_out)
+    rows, wall, _ = _timed_run("4-contig bed", kernels.ALL_NAMES, "bed", fa,
+                               bam, bed, plain_out)
     _require(len(rows) == len(events), f"{len(rows)} rows for "
              f"{len(events)} events")
     want = _read_bytes(plain_out)
@@ -893,9 +1196,10 @@ def shards_phase(tmp, seed: int) -> None:
     for index in range(2):
         outs.append(os.path.join(d, f"by_contig{index}.vapor"))
         got, wall_i, _ = _timed_run(
-            f"--shard-by-contig shard {index}", ("hist",), "bed", fa, bam,
-            bed, outs[-1], extra=["--shard-by-contig", "--num-shards", "2",
-                                  "--shard-index", str(index)])
+            f"--shard-by-contig shard {index}", ("hist", "row_codes"), "bed",
+            fa, bam, bed, outs[-1], extra=["--shard-by-contig",
+                                           "--num-shards", "2",
+                                           "--shard-index", str(index)])
         _require(got, f"--shard-by-contig shard {index} is empty")
         t += wall_i
     merged = os.path.join(d, "by_contig.vapor")
@@ -922,8 +1226,9 @@ def mesh_phase(fa, bam, events, reps: int) -> None:
     from vapor_tpu_torch.engine.kernels.timing import call_ms
     from vapor_tpu_torch.parallel.mesh import maybe_mesh_rows, mesh_devices
     dev = torch.device("cuda", 0)
-    mode_kernels = {"rdd": ("hist", "kept_hist", "rdd_moment"),
-                    "del": ("hist", "left_hist", "moment2")}
+    mode_kernels = {"rdd": ("hist", "kept_hist", "rdd_moment", "row_codes",
+                            "kept_tables", "intercept_z"),
+                    "del": ("hist", "left_hist", "moment2", "row_codes")}
     for svtype, body, mode in (("DUP", DUP_SIZES[-1], "rdd"),
                                ("DEL", SIZES[-1], "del")):
         ev = next(x for x in events if x[0] == svtype and
@@ -996,7 +1301,7 @@ def corpus_phase(tmp, launches) -> None:
         build_s = time.perf_counter() - t0
         run = shutil.copyfile(vcf, os.path.join(d, "cuda.vcf"))
         rows, wall, got = _timed_run(
-            f"corpus {zygosity}", kernels.NAMES, "vcf", fa, bam, run,
+            f"corpus {zygosity}", kernels.ALL_NAMES, "vcf", fa, bam, run,
             extra=["--validate-vcf-tandup"])
         _require(len(rows) == len(truth), f"corpus {zygosity}: "
                  f"{len(rows)} annotated records for {len(truth)} calls")
@@ -1011,7 +1316,7 @@ def corpus_phase(tmp, launches) -> None:
         recs = [r.split("VaPor_REC=")[1].split("\t")[0] for r in rows
                 if "VaPor_REC=" in r]
         n_reads = sum(len(x.split(",")) for x in recs if x != "NA")
-        for name in kernels.NAMES:
+        for name in kernels.ALL_NAMES:
             launches[name] += got[name]
         one = os.path.join(d, "numpy_chr1.vcf")
         with open(one, "wb") as fo:
@@ -1072,7 +1377,8 @@ def band_phase(launches) -> None:
     _require(selfstats == band["stat_rounds"] > 0,
              f"band leg: {band['stat_rounds']} refiner rounds in "
              f"{selfstats} self-stats launches of hist")
-    launches["hist"] += kernels.LAUNCHES["hist"]
+    for name in ("hist", "row_codes"):      # the refiner's rows
+        launches[name] += kernels.LAUNCHES[name]
     t1 = time.perf_counter()
     n = len(haps)
     with ProcessPoolExecutor(
@@ -1113,7 +1419,7 @@ def capstone_phase(tmp, launches, record) -> None:
     build_s = time.perf_counter() - t0
     n = case["n_events"]
     want = os.path.join(d, "pipelined.vapor")
-    rows, wall, got = _timed_run("capstone", kernels.NAMES, "bed",
+    rows, wall, got = _timed_run("capstone", kernels.ALL_NAMES, "bed",
                                  case["fasta"], case["bam"], case["bed"],
                                  want, record=record)
     _require(len(rows) == n, f"capstone: {len(rows)} rows for {n} events")
@@ -1121,7 +1427,7 @@ def capstone_phase(tmp, launches, record) -> None:
     _require(called and all(math.isfinite(float(c[5])) for c in called),
              "capstone: no score, or a non-finite one")
     n_reads = sum(len(c[9].split(",")) for c in called)
-    for name in kernels.NAMES:
+    for name in kernels.ALL_NAMES:
         launches[name] += got[name]
     out = os.path.join(d, "resumed.vapor")
     cmd = [sys.executable, "-m", "vapor_tpu_torch", "bed", "--sv-input",
@@ -1195,11 +1501,11 @@ def goldens_phase(launches) -> None:
         _require(not plain, f"goldens [{backend}]: plain versions ran on "
                  f"CUDA tensors: {plain}")
         total = {n: sum(r["launches"][n] for r in results.values())
-                 for n in kernels.NAMES}
+                 for n in kernels.ALL_NAMES}
         _require(all(total[n] for n in GOLDEN_KERNELS), f"goldens "
                  f"[{backend}]: a kernel of the path never launched: "
                  f"{total}")
-        for name in kernels.NAMES:
+        for name in kernels.ALL_NAMES:
             launches[name] += total[name]
         print(f"phase 8a goldens [{backend}]: {len(results)} of "
               f"{len(results)} byte-equal to fixtures/golden/ in {wall:.2f} "
@@ -1222,7 +1528,7 @@ def pdf_phase(tmp, fa, bam, events, launches) -> None:
         fo.writelines(f"chrE\t{s}\t{e}\t{t}\n" for t, s, e in keep)
     flags = ["--sv-type", "TANDUP", "--size-cff", "50", "--PB-supp", "3"]
     rows, wall, got = _timed_run(
-        "pdf", ("hist", "kept_hist", "rdd_moment"), "pdf", fa, bam, bed4,
+        "pdf", RDD_KERNELS, "pdf", fa, bam, bed4,
         os.path.join(d, "cuda.vapor"), extra=flags)
     want = run_cli("pdf", fa, bam, bed4, os.path.join(d, "numpy.vapor"),
                    backend="numpy", device="cpu", extra=flags)
@@ -1230,7 +1536,7 @@ def pdf_phase(tmp, fa, bam, events, launches) -> None:
     _require(rows == want and len(rows) == n_dup and
              all(r.split("\t")[1] != "NA" for r in rows),
              f"pdf on the card: {rows} against the numpy oracle's {want}")
-    for name in kernels.NAMES:
+    for name in kernels.ALL_NAMES:
         launches[name] += got[name]
     print(f"phase 8a pdf: {n_dup} of {len(keep)} calls kept by --sv-type, "
           f"scored, equal to the numpy oracle in {wall:.2f} s; launches "
@@ -1244,11 +1550,11 @@ def depth_phase(tmp, fa, bam, bed, want: str, launches) -> None:
     for depth in (1, 24):
         out = os.path.join(tmp, f"depth{depth}.vapor")
         rows, wall, got = _timed_run(
-            f"bed --pipeline {depth}", kernels.NAMES, "bed", fa, bam, bed,
+            f"bed --pipeline {depth}", kernels.ALL_NAMES, "bed", fa, bam, bed,
             out, extra=["--pipeline", str(depth)])
         _require(_read_bytes(out) == _read_bytes(want),
                  f"bed --pipeline {depth} differs from phase 4")
-        for name in kernels.NAMES:
+        for name in kernels.ALL_NAMES:
             launches[name] += got[name]
         print(f"phase 8b pipeline depth {depth}: {len(rows)} events equal "
               f"to phase 4 in {wall:.2f} s: {len(rows) / wall:.2f} "
@@ -1466,12 +1772,13 @@ def v1_goldens_phase(launches) -> None:
     _require(not plain, f"goldens [torch-v1]: plain versions ran on CUDA "
              f"tensors: {plain}")
     total = {n: sum(r["launches"][n] for r in results.values())
-             for n in kernels.NAMES}
-    _require(total["hist"] > 0 and not any(
-        total[n] for n in kernels.NAMES if n != "hist"),
-        f"goldens [torch-v1]: the refiner's hist did not launch, or a "
-        f"fused engine kernel did: {total}")
-    launches["hist"] += total["hist"]
+             for n in kernels.ALL_NAMES}
+    _require(total["hist"] > 0 and total["row_codes"] > 0 and not any(
+        total[n] for n in kernels.ALL_NAMES if n not in V1_KERNELS),
+        f"goldens [torch-v1]: the refiner's hist or row_codes did not "
+        f"launch, or a fused engine kernel did: {total}")
+    for name in V1_KERNELS:
+        launches[name] += total[name]
     print(f"phase 9b goldens [torch-v1]: {len(results)} of {len(results)} "
           f"byte-equal to fixtures/golden/ in {wall:.2f} s; launches "
           f"{total}", flush=True)
@@ -1484,13 +1791,15 @@ def v1_bed_phase(tmp, fa, bam, bed, events, want: str, wall_torch: float,
     default backend), and the hist launches of the refiner."""
     from vapor_tpu_torch.engine import kernels
     out = os.path.join(tmp, "v1.vapor")
-    rows, wall, got = _timed_run("bed torch-v1", ("hist",), "bed", fa, bam,
+    rows, wall, got = _timed_run("bed torch-v1", V1_KERNELS, "bed", fa, bam,
                                  bed, out, backend="torch-v1")
     _require(_read_bytes(out) == _read_bytes(want),
              "bed --backend torch-v1 differs from phase 4")
-    _require(not any(got[n] for n in kernels.NAMES if n != "hist"),
+    _require(not any(got[n] for n in kernels.ALL_NAMES
+                     if n not in V1_KERNELS),
              f"bed torch-v1 launched a fused engine kernel: {got}")
-    launches["hist"] += got["hist"]
+    for name in V1_KERNELS:
+        launches[name] += got[name]
     print(f"phase 9c bed [torch-v1]: all {len(rows)} events equal to phase "
           f"4 in {wall:.2f} s: {len(rows) / wall:.2f} events/s (the "
           f"default backend {len(events) / wall_torch:.2f}); hist launches "
@@ -1541,6 +1850,7 @@ def main() -> int:
         repeat_parity(args.seed, args.reps, report)
         walk_waves(report)
         selfstats_parity(fa, events, args.reps, report)
+        glue_crafted(args.seed, args.reps, report)
         print("phase 3 kernel parity: all equal", flush=True)
 
         # bed: DEL (del, w10 junction), INV (m1b, w10 junction) and DUP
@@ -1548,7 +1858,7 @@ def main() -> int:
         # torch-nobatch (one launch per request), which must agree
         runs = {"bed": MainPath(), "capstone": MainPath()}
         rows, wall, launches = _timed_run(
-            "bed", kernels.NAMES, "bed", fa, bam, bed,
+            "bed", kernels.ALL_NAMES, "bed", fa, bam, bed,
             os.path.join(tmp, "cuda.vapor"), record=runs["bed"])
         _require(len(rows) == len(events),
                  f"{len(rows)} rows for {len(events)} events")
@@ -1560,7 +1870,7 @@ def main() -> int:
                  "a tandem DUP was not scored")
         n_reads = sum(len(c[9].split(",")) for c in called)
         rows_nb, wall_nb, launches_nb = _timed_run(
-            "bed torch-nobatch", kernels.NAMES, "bed", fa, bam, bed,
+            "bed torch-nobatch", kernels.ALL_NAMES, "bed", fa, bam, bed,
             os.path.join(tmp, "nobatch.vapor"), backend="torch-nobatch")
         _require(rows_nb == rows, "bed: torch-nobatch differs from the "
                  "default backend")
@@ -1582,7 +1892,7 @@ def main() -> int:
         # vcf mode rewrites <sv-input>.vapor: run on copies of the input
         vrun = shutil.copyfile(vcf, os.path.join(vdir, "cuda.vcf"))
         vrows, vwall, vlaunches = _timed_run(
-            "vcf", ("hist", "kept_hist", "rdd_moment"), "vcf", vfa, vbam,
+            "vcf", RDD_KERNELS, "vcf", vfa, vbam,
             vrun)
         _require(len(vrows) == len(vevents),
                  f"{len(vrows)} annotated records for {len(vevents)} "
@@ -1593,7 +1903,7 @@ def main() -> int:
         _require(all(math.isfinite(x) for x in gs), "non-finite GS")
         v_reads = sum(len(x.split(",")) for x in recs)
         vrows_nb, vwall_nb, vlaunches_nb = _timed_run(
-            "vcf torch-nobatch", ("hist", "kept_hist", "rdd_moment"), "vcf",
+            "vcf torch-nobatch", RDD_KERNELS, "vcf",
             vfa, vbam, shutil.copyfile(vcf, os.path.join(vdir,
                                                           "nobatch.vcf")),
             backend="torch-nobatch")
@@ -1605,7 +1915,7 @@ def main() -> int:
               f"{vlaunches}; torch-nobatch equal, {vwall_nb:.2f} s: "
               f"{len(vrows) / vwall_nb:.2f} events/s; launches "
               f"{vlaunches_nb}", flush=True)
-        for name in kernels.NAMES:
+        for name in kernels.ALL_NAMES:
             launches[name] += vlaunches[name]
 
         # the 4 smallest DEL/INV events and the 2 smallest DUPs; the
@@ -1672,13 +1982,21 @@ def main() -> int:
 
         t0 = time.perf_counter()
         bucket_parity(runs, args.reps, report)
+        glue_bucket_parity(runs, args.reps, report)
         floor_split(runs, report)
         print(f"phase 3 buckets: {time.perf_counter() - t0:.1f} s",
               flush=True)
 
+    glue_keys = ("device_ms", "call_ms", "host_us", "bound_share",
+                 "lost_ms_bed", "lost_ms_capstone", "bound_share_bed",
+                 "bound_share_capstone", "device_ms_bed",
+                 "device_ms_capstone", "plain_device_ms", "plain_host_us",
+                 "plain_device_ms_bed", "plain_device_ms_capstone",
+                 "buckets")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"vapor_tpu_torch/engine/kernels/csrc/{name}.cu",
+         "source": f"vapor_tpu_torch/engine/kernels/csrc/"
+                   f"{build.source(name)}",
          "replaces": REPLACES[name],
          "launches": launches[name],
          "max_abs_err": report[name]["max_abs_err"],
@@ -1695,7 +2013,16 @@ def main() -> int:
              "selfstats_plain_ms", "selfstats_bound_ms", "selfstats_shape",
              "selfstats", "floor")
             if x in report[name]}}
-        for name in kernels.NAMES]}))
+        for name in kernels.NAMES] + [
+        {"name": name, "route": "cuda",
+         "source": f"vapor_tpu_torch/engine/kernels/csrc/"
+                   f"{build.source(name)}",
+         "replaces": REPLACES[name], "launches": launches[name],
+         **{x: report[name][x] for x in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "shape": report[name]["shape"],
+         **{x: report[name][x] for x in glue_keys}}
+        for name in kernels.GLUE_NAMES]}))
     from vapor_tpu_torch.engine.kernels.roofline import card_line
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,22 +11,26 @@ the main path's largest m1b bucket), B = PROFILE_ROWS rows (48):
 
 * stages timed with CUDA events after a warm-up call, PROFILE_REPS
   calls each (5; the least is reported):
-  codes  row_codes (engine/fused.py): packed hap, forward and
-         dot-space reverse-strand k-mer codes, k = 10;
+  codes  row_codes (engine/fused.py, the codes kernel on the card):
+         packed hap, forward and dot-space reverse-strand k-mer codes,
+         k = 10;
   hist   the hist kernel alone, on those codes;
   full   fused_batch for each scorer (m1b, del, w10, rdd): codes, the
-         mode's kernels and the torch glue between them;
+         mode's kernels, the keep-table and intercept kernels and the
+         few torch ops between them;
 * against each stage, its bound: the larger of the bytes it must move
   over 3.35 TB/s and its integer operations over 16.73 T/s
   (vapor_tpu_torch/engine/kernels/roofline.py, which chip_smoke.py
-  uses too; full counts its codes and each kernel it launches, the glue
-  not), and a verdict: memory-bound when the stage moves its bytes at
-  50% or more of the memory rate, operations-bound at 30% or more of
-  the integer rate, launch/host-bound otherwise;
+  uses too; full counts its codes and each of the six kernels it
+  launches, the keep tables and the intercept not), and a verdict:
+  memory-bound when the stage moves its bytes at 50% or more of the
+  memory rate, operations-bound at 30% or more of the integer rate,
+  launch/host-bound otherwise;
 * one torch.profiler pass per bucket and scorer that splits full's
-  device time into the six kernels and the torch glue: row_codes,
-  kept_table, intercept_z (record_function ranges), the scan kernels
-  (cumsum, cummax) among them, and the rest.
+  device time into the six kernels and the glue: row_codes,
+  kept_tables, intercept_z (record_function ranges around the glue
+  kernels' wrappers), the scan kernels (cumsum, cummax) among them
+  (none on the card since the glue runs as kernels), and the rest.
 
 The JAX script's TPU v5e peaks are not used here.  Prints a line per
 stage and one JSON object; writes it to --out.  --device cpu computes
@@ -53,7 +57,8 @@ B = int(os.environ.get("PROFILE_ROWS", "48"))
 BUCKETS = [int(x) for x in
            os.environ.get("PROFILE_BUCKETS", "1536,3072,12544").split(",")]
 SCORERS = ("m1b", "del", "w10", "rdd")
-GLUE = ("row_codes", "kept_table", "intercept_z")
+# the glue kernels' wrappers, which fused_rows calls as kernels.<name>
+GLUE = ("row_codes", "kept_tables", "intercept_z")
 K = 10
 
 
@@ -127,10 +132,10 @@ def recorded_kernels():
 @contextlib.contextmanager
 def labelled_glue():
     """Opens a record_function range around each call of the glue
-    functions that fused_rows calls by name."""
+    kernels' wrappers that fused_rows calls by name."""
     from torch.profiler import record_function
-    from vapor_tpu_torch.engine import fused
-    originals = {n: getattr(fused, n) for n in GLUE}
+    from vapor_tpu_torch.engine import kernels
+    originals = {n: getattr(kernels, n) for n in GLUE}
 
     def wrap(name):
         @functools.wraps(originals[name])
@@ -139,22 +144,12 @@ def labelled_glue():
                 return originals[name](*a, **kw)
         return call
     for name in GLUE:
-        setattr(fused, name, wrap(name))
+        setattr(kernels, name, wrap(name))
     try:
         yield
     finally:
         for name, fn in originals.items():
-            setattr(fused, name, fn)
-
-
-def codes_work(h, r, rl, codes):
-    """(bytes, operations) of row_codes: hap and read bytes and lengths
-    in, the three code arrays out; a shift and an or per symbol of each
-    k-mer window of the hap, the reads and their reverse strands."""
-    from vapor_tpu_torch.engine.kernels.roofline import tensor_bytes
-    (Bn, H), R = h.shape, r.shape[1]
-    return (tensor_bytes((h, r, rl, *codes[:3])),
-            2 * K * Bn * (H + 2 * R))
+            setattr(kernels, name, fn)
 
 
 def kernels_work(calls, hap_lens):
@@ -202,13 +197,19 @@ def stage_row(nbytes, ops, times):
 
 def device_split(full):
     """full's device time under torch.profiler: the six kernels, the
-    glue ranges, the scan kernels among the glue, and the rest (ms)."""
+    glue (each range's torch ops, and its glue kernel by name: the
+    profiler gives a range no kernel launched through ctypes), the scan
+    kernels among the glue, and the rest (ms)."""
     from profile_torch_bed import device_profile
     with labelled_glue():
         split = device_profile(full, labels=[f"glue:{n}" for n in GLUE])
     ours = {n: 1e3 * t for n, t in split["our_kernels_s"].items() if t}
-    glue = {n[len("glue:"):]: (None if t is None else 1e3 * t)
-            for n, t in split["labelled_s"].items()}
+    glue_kernels = split.get("glue_kernels_s", {})
+    glue = {}
+    for label, t in split["labelled_s"].items():
+        name = label[len("glue:"):]
+        parts = [x for x in (t, glue_kernels.get(name)) if x]
+        glue[name] = 1e3 * sum(parts) if parts else None
     device_ms = 1e3 * split["device_busy_s"]
     return {"device": device_ms, "kernels": ours,
             "kernels_total": sum(ours.values()), "glue": glue,
@@ -228,6 +229,7 @@ def profile_bucket(H, device):
     from vapor_tpu_torch.engine.constants import HAP_PAD
     from vapor_tpu_torch.engine.fused import (batch_from_numpy, fused_batch,
                                               row_codes)
+    from vapor_tpu_torch.engine.kernels import roofline
     R = H
     on_card = device.type == "cuda"
     haps, reads, _, rlens, ms = make_rows(H, R, B)
@@ -240,7 +242,7 @@ def profile_bucket(H, device):
         return time_ms(fn, REPS) if on_card else None
 
     stages = {}
-    c_work = codes_work(h, r, rl, codes)
+    c_work = roofline.codes_work(h, r, rl, codes[:3], K)
     stages["codes"] = stage_row(*c_work,
                                 timed(lambda: row_codes(h, r, rl, K)))
     with recorded_kernels() as calls:

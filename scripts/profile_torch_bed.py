@@ -148,7 +148,9 @@ def device_profile(fn, top: int = 12, labels=()) -> dict:
     """Runs fn() once under torch.profiler (CPU + CUDA activities) and
     sums the device time of every kernel by name: the run's wall time,
     the device's busy seconds and idle share of the wall, the six
-    kernels' seconds, and the `top` kernels by device time.  Each of
+    kernels' seconds, the three glue kernels' ("glue_kernels_s"), the
+    rest (torch ops, "torch_ops_s"), and the `top` kernels by device
+    time.  Each of
     `labels`, a torch.profiler.record_function range that fn opens,
     gets the device seconds of the kernels launched inside it
     ("labelled_s": a label that fn never opened is left out, and one
@@ -178,11 +180,13 @@ def device_profile(fn, top: int = 12, labels=()) -> dict:
     device_s = sum(by_kernel.values()) / 1e6
     ours = {n: sum(us for key, us in by_kernel.items()
                    if re.search(rf"(?<![A-Za-z_]){n}_kernel", key)) / 1e6
-            for n in kernels.NAMES}
+            for n in kernels.ALL_NAMES}
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     out = {"traced_wall_s": wall, "device_busy_s": device_s,
            "device_idle_share": 1 - device_s / wall,
-           "our_kernels_s": ours,
+           "our_kernels_s": {n: ours[n] for n in kernels.NAMES},
+           "glue_kernels_s": {n: ours[n] for n in kernels.GLUE_NAMES},
+           "torch_ops_s": device_s - sum(ours.values()),
            "top_device_kernels_s": {k: v / 1e6 for k, v in ranked}}
     if labels:
         out["labelled_s"] = labelled

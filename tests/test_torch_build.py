@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from vapor_tpu_torch.engine import fused, oracle
-from vapor_tpu_torch.engine.constants import HAP_PAD, READ_PAD
+from vapor_tpu_torch.engine.constants import HAP_PAD, NIB_LUT, READ_PAD
 from vapor_tpu_torch.engine import kernels
 from vapor_tpu_torch.engine.kernels import build
 
@@ -174,8 +174,8 @@ def _walk_constant(name):
 
 
 def _lane0(seqs, k, pad):
-    return fused.pack_codes(torch.as_tensor(seqs), k,
-                            pad)[:, 0].numpy().view(np.uint32)
+    return kernels.pack_codes(torch.as_tensor(seqs), k,
+                              pad)[:, 0].numpy().view(np.uint32)
 
 
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
@@ -196,7 +196,7 @@ def test_no_code_holds_the_other_sides_sentinel():
     byte the CLI paths produce (key_modify's alphabet, X, x and =), then
     on packed codes of random rows."""
     alphabet = np.frombuffer(b"ACGTNacgtnXx=", np.uint8)
-    nib = fused._NIB_LUT
+    nib = NIB_LUT
     hap_pad, read_pad = nib[HAP_PAD], nib[READ_PAD]
     assert hap_pad != read_pad
     assert not np.isin(nib[alphabet], [hap_pad, read_pad]).any()

@@ -1,5 +1,6 @@
 """vapor_tpu_torch's CUDA kernels against their plain PyTorch versions
-(the window refiner's self-stats rows through hist included), each
+(the window refiner's self-stats rows through hist included, and the
+three glue kernels: row_codes, kept_tables, intercept_z), each
 kernel's device time apart from host work within its call time, the fused
 engine on the card against the same engine on the CPU, its rows split
 over two streams of the card against one launch, the batching
@@ -11,6 +12,10 @@ Needs a CUDA card and nvcc: each test skips without one.  Run on the
 card with  python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import functools
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -57,11 +62,11 @@ def test_kernels_equal_plain(cuda, H, R, k):
     want = kernels.hist_plain(*codes)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    kd, ka = (kept_table(x, 10, 10, False) for x in want[:2])
-    kd50 = kept_table(want[0], 10, 50, True)
+    kd, ka = (kept_table(x, 10, 10, False, H, R) for x in want[:2])
+    kd50 = kept_table(want[0], 10, 50, True, H, R)
     left = kernels.left_hist(*codes, kd50)
     assert torch.equal(left, kernels.left_hist_plain(*codes, kd50))
-    ka50 = kept_table(left, 10, 50, True)
+    ka50 = kept_table(left, 10, 50, True, H, R)
     for keep, w10 in (((kd, ka), False), ((kd50, ka50), True)):
         assert torch.equal(kernels.moment(*codes, *keep, w10),
                            kernels.moment_plain(*codes, *keep, w10))
@@ -69,7 +74,7 @@ def test_kernels_equal_plain(cuda, H, R, k):
                        kernels.moment2_plain(*codes, kd, ka, kd50, ka50))
     h_kept = kernels.kept_hist(*codes, kd, ka)
     assert torch.equal(h_kept, kernels.kept_hist_plain(*codes, kd, ka))
-    found, z = intercept_z(h_kept, H)
+    found, z = intercept_z(h_kept, H, R)
     z = torch.where(found, z + 2 * m, 0).to(torch.int32)
     assert torch.equal(kernels.rdd_moment(*codes, kd, ka, z),
                        kernels.rdd_moment_plain(*codes, kd, ka, z))
@@ -122,19 +127,19 @@ def test_walk_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
     for g, w in zip(kernels.hist(*codes), want):
         assert torch.equal(g, w)
     assert int(want[2][:, :2].sum()) > 0
-    kd, ka = (kept_table(x, 10, 10, False) for x in want[:2])
+    kd, ka = (kept_table(x, 10, 10, False, H, R) for x in want[:2])
     h_kept = kernels.kept_hist_plain(*codes, kd, ka)
     assert torch.equal(kernels.kept_hist(*codes, kd, ka), h_kept)
     assert int(h_kept.sum()) > 0
-    found, z = intercept_z(h_kept, H)
+    found, z = intercept_z(h_kept, H, R)
     z = torch.where(found, z + 2 * m, 0).to(torch.int32)
     assert torch.equal(kernels.rdd_moment(*codes, kd, ka, z),
                        kernels.rdd_moment_plain(*codes, kd, ka, z))
-    kd50 = kept_table(want[0], 10, 50, True)
+    kd50 = kept_table(want[0], 10, 50, True, H, R)
     h_left = kernels.left_hist_plain(*codes, kd50)
     assert torch.equal(kernels.left_hist(*codes, kd50), h_left)
     assert int(h_left.sum()) > 0
-    ka50 = kept_table(h_left, 10, 50, True)
+    ka50 = kept_table(h_left, 10, 50, True, H, R)
     for keep, w10 in (((kd, ka), False), ((kd50, ka50), True)):
         mom = kernels.moment_plain(*codes, *keep, w10)
         assert torch.equal(kernels.moment(*codes, *keep, w10), mom)
@@ -188,9 +193,10 @@ def test_keep_kernels_on_chip_walk_equal_plain(cuda, B, H, R, strip, k):
     codes = (*row_codes(h, r, rl, k), m, rl, k)
     h_d, h_a, scal = kernels.hist_plain(*codes)
     assert int(scal[:, :2].sum()) > 0
-    kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
-    kd50 = kept_table(h_d, 10, 50, True)
-    ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50, True)
+    kd, ka = (kept_table(x, 10, 10, False, H, R) for x in (h_d, h_a))
+    kd50 = kept_table(h_d, 10, 50, True, H, R)
+    ka50 = kept_table(kernels.left_hist_plain(*codes, kd50), 10, 50, True,
+                      H, R)
     ones, zeros = torch.ones_like(kd), torch.zeros_like(kd)
     tables = [(kd, ka), (kd50, ka50), (ones, ones), (zeros, zeros),
               (ones, zeros), (zeros, ones)]
@@ -232,9 +238,91 @@ def test_keep_kernels_on_chip_walk_equal_plain(cuda, B, H, R, strip, k):
     assert int(mixed[:, :3].abs().sum()) == 0
 
 
+@pytest.mark.parametrize("H,R,copies", [(1000, 1300, 1), (4100, 770, 2),
+                                        (12544, 1024, 2)])
+@pytest.mark.parametrize("k", [10, 40])
+def test_glue_kernels_equal_plain_on_ragged_rows(cuda, H, R, copies, k):
+    """The three glue kernels against their plain versions, bitwise, on
+    _walk_batch's ragged rows (a pad row last): row_codes with and
+    without hap_index (every column), kept_tables with fused_rows' del
+    tables in one launch (kd, ka, kd50), then ka50, and intercept_z on
+    the kept d-histogram and on hist's h_d."""
+    batch = _walk_batch(H, R, k, H + R + k, copies)
+    h, r, rl, m, _ = batch_from_numpy(*batch, k // 10 - 1, cuda)
+    launched = dict(kernels.LAUNCHES)
+    plain_calls = dict(kernels.PLAIN_CUDA_CALLS)
+    got = kernels.row_codes(h, r, rl, k)
+    for g, w in zip(got, kernels.row_codes_plain(h, r, rl, k)):
+        assert torch.equal(g, w)
+    index = torch.arange(r.shape[0], device=cuda) % 3
+    for g, w in zip(kernels.row_codes(h[:3].contiguous(), r, rl, k, index),
+                    kernels.row_codes_plain(h[:3].contiguous(), r, rl, k,
+                                            index)):
+        assert torch.equal(g, w)
+    codes = (*got, m, rl, k)
+    h_d, h_a, _ = kernels.hist_plain(*codes)
+    specs = ((10, False), (10, False), (50, True))
+    tables = kernels.kept_tables((h_d, h_a, h_d), specs, H, R)
+    for g, w in zip(tables, kernels.kept_tables_plain((h_d, h_a, h_d),
+                                                      specs, H, R)):
+        assert torch.equal(g, w)
+    kd, ka, kd50 = tables
+    h_left = kernels.left_hist_plain(*codes, kd50)
+    ka50, = kernels.kept_tables((h_left,), ((50, True),), H, R)
+    assert torch.equal(ka50, kernels.kept_tables_plain((h_left,),
+                                                       ((50, True),), H,
+                                                       R)[0])
+    h_kept = kernels.kept_hist_plain(*codes, kd, ka)
+    for x in (h_kept, h_d):
+        for g, w in zip(kernels.intercept_z(x, H, R),
+                        kernels.intercept_z_plain(x, H, R)):
+            assert torch.equal(g, w)
+    assert {n: kernels.LAUNCHES[n] - launched[n]
+            for n in kernels.GLUE_NAMES} == {
+        "row_codes": 2, "kept_tables": 2, "intercept_z": 2}
+    assert {n: kernels.PLAIN_CUDA_CALLS[n] - plain_calls[n]
+            for n in kernels.GLUE_NAMES} == {
+        "row_codes": 2, "kept_tables": 2, "intercept_z": 2}
+
+
+_OUT_OF_RANGE = textwrap.dedent("""
+    import sys
+    import torch
+    from vapor_tpu_torch.engine import kernels
+    bad = sys.argv[1]
+    dev = torch.device("cuda")
+    haps = torch.full((2, 128), 65, dtype=torch.uint8, device=dev)
+    reads = torch.full((3, 96), 67, dtype=torch.uint8, device=dev)
+    rlens = torch.tensor([96, 97 if bad == "rlens" else 50, 0],
+                         dtype=torch.int32, device=dev)
+    index = torch.tensor([0, 2 if bad == "hap_index" else 1, 1],
+                         device=dev)
+    kernels.row_codes(haps, reads, rlens, 10, index)
+    torch.cuda.synchronize()
+""")
+
+
+@pytest.mark.parametrize("bad", ["hap_index", "rlens"])
+def test_row_codes_stops_on_out_of_range_rows(cuda, bad):
+    """A hap index outside [0, U) or a read length outside [0, R] stops
+    the codes kernel with a device-side assert, as the plain version's
+    index_select and gather stop on the card, and no word is read outside
+    its row (run in a child process: the assert ends its CUDA context)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE, bad],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode != 0
+    assert "device-side assert triggered" in run.stderr, run.stderr[-2000:]
+
+
 @pytest.mark.parametrize("scorer", ["m1b", "w10", "del", "rdd"])
 def test_fused_batch_card_equals_cpu(cuda, scorer):
+    """fused_batch on the card (the glue kernels in place, no plain
+    version on CUDA tensors) against the CPU's plain path."""
     haps, reads, rlens, ms = _batch(1024, 1536, 11, seed=5)
+    launched = dict(kernels.LAUNCHES)
+    plain_calls = dict(kernels.PLAIN_CUDA_CALLS)
     for k_idx in range(4):
         on_card = fused_batch(*batch_from_numpy(haps, reads, rlens, ms,
                                                 k_idx, cuda),
@@ -244,6 +332,12 @@ def test_fused_batch_card_equals_cpu(cuda, scorer):
                              H=1024, R=1536, scorer=scorer)
         for g, w in zip(on_card, on_cpu):
             assert torch.equal(g.cpu(), w)
+    # four launches of each, or more where the rows split over cards
+    assert kernels.PLAIN_CUDA_CALLS == plain_calls
+    assert kernels.LAUNCHES["row_codes"] >= launched["row_codes"] + 4
+    assert kernels.LAUNCHES["kept_tables"] >= launched["kept_tables"] + 4
+    assert (kernels.LAUNCHES["intercept_z"] > launched["intercept_z"]) == \
+        (scorer == "rdd")
 
 
 @pytest.mark.parametrize("hap_index", [False, True])
@@ -435,10 +529,10 @@ def test_device_time_within_call_time(cuda, H, R):
     h, r, rl, m, _ = batch_from_numpy(haps, reads, rlens, ms, 0, cuda)
     codes = (*row_codes(h, r, rl, 10), m, rl, 10)
     h_d, h_a, _ = kernels.hist(*codes)
-    kd, ka = (kept_table(x, 10, 10, False) for x in (h_d, h_a))
-    kd50 = kept_table(h_d, 10, 50, True)
-    ka50 = kept_table(kernels.left_hist(*codes, kd50), 10, 50, True)
-    found, z = intercept_z(kernels.kept_hist(*codes, kd, ka), H)
+    kd, ka = (kept_table(x, 10, 10, False, H, R) for x in (h_d, h_a))
+    kd50 = kept_table(h_d, 10, 50, True, H, R)
+    ka50 = kept_table(kernels.left_hist(*codes, kd50), 10, 50, True, H, R)
+    found, z = intercept_z(kernels.kept_hist(*codes, kd, ka), H, R)
     z = torch.where(found, z + 2 * m, 0).to(torch.int32)
     rest = {"hist": (), "left_hist": (kd50,), "kept_hist": (kd, ka),
             "moment": (kd50, ka50, True), "moment2": (kd, ka, kd50, ka50),

@@ -10,6 +10,8 @@ import glob
 import os
 import re
 
+from vapor_tpu_torch.engine.kernels import build
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DOCKERFILE = os.path.join(ROOT, "deploy", "Dockerfile.cuda")
 LOCK = os.path.join(ROOT, "deploy", "requirements-lock-cuda.txt")
@@ -76,9 +78,13 @@ def test_copied_paths_exist_and_hold_the_package_data():
     for pattern in data:
         assert glob.glob(os.path.join(ROOT, "vapor_tpu_torch", pattern)), \
             pattern
-    kernels = glob.glob(os.path.join(ROOT, "vapor_tpu_torch", "engine",
-                                     "kernels", "csrc", "*.cu"))
-    assert len(kernels) == 6
+    kernels = sorted(os.path.basename(x) for x in glob.glob(os.path.join(
+        ROOT, "vapor_tpu_torch", "engine", "kernels", "csrc", "*.cu")))
+    # the six dot-plot kernels and the three glue kernels, each of which
+    # build.build() compiles in the image
+    assert len(kernels) == 9
+    assert kernels == sorted(build.source(name) for name in
+                             (*build.ENTRY_POINTS, *build.GLUE_POINTS))
 
 
 def test_entry_point_is_the_ports_console_script():

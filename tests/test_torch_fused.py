@@ -128,9 +128,9 @@ def test_batch_has_found_tied_and_empty_intercepts():
         k = 10 * (k_idx + 1)
         codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
         h_d, h_a, _ = kernels.hist(*codes)
-        kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+        kd, ka = (tf.kept_table(x, 10, 10, False, H, R) for x in (h_d, h_a))
         h_kept = kernels.kept_hist(*codes, kd, ka)
-        found, _ = tf.intercept_z(h_kept, H)
+        found, _ = tf.intercept_z(h_kept, H, R)
         nonempty = h_kept.sum(1) > 0
         seen |= {"found"} if bool(found.any()) else set()
         seen |= {"tie"} if bool((nonempty & ~found).any()) else set()
@@ -222,10 +222,10 @@ def test_kernel_plain_versions_match_jax_stages(k, m):
     h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
     codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
     h_d, h_a, scal = kernels.hist(*codes)
-    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
-    kd50 = tf.kept_table(h_d, 10, 50, True)
+    kd, ka = (tf.kept_table(x, 10, 10, False, Hs, Rs) for x in (h_d, h_a))
+    kd50 = tf.kept_table(h_d, 10, 50, True, Hs, Rs)
     h_left = kernels.left_hist(*codes, kd50)
-    ka50 = tf.kept_table(h_left, 10, 50, True)
+    ka50 = tf.kept_table(h_left, 10, 50, True, Hs, Rs)
     mom = kernels.moment(*codes, kd, ka, False)
     mom50 = kernels.moment(*codes, kd50, ka50, True)
     mom2 = kernels.moment2(*codes, kd, ka, kd50, ka50)
@@ -259,9 +259,9 @@ def test_rdd_plain_versions_match_jax_stages(k, m):
     h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
     codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
     h_d, h_a, _ = kernels.hist(*codes)
-    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    kd, ka = (tf.kept_table(x, 10, 10, False, Hs, Rs) for x in (h_d, h_a))
     h_kept = kernels.kept_hist(*codes, kd, ka)
-    found, z = tf.intercept_z(h_kept, Hs)
+    found, z = tf.intercept_z(h_kept, Hs, Rs)
     z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
     mom = kernels.rdd_moment(*codes, kd, ka, z)
     for b in range(B):
@@ -288,9 +288,9 @@ def test_plain_versions_match_jax_on_repeat_rows(k):
     h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
     codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
     h_d, h_a, scal = kernels.hist(*codes)
-    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
+    kd, ka = (tf.kept_table(x, 10, 10, False, Hs, Rs) for x in (h_d, h_a))
     h_kept = kernels.kept_hist(*codes, kd, ka)
-    found, z = tf.intercept_z(h_kept, Hs)
+    found, z = tf.intercept_z(h_kept, Hs, Rs)
     z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
     mom = kernels.rdd_moment(*codes, kd, ka, z)
     for b in range(B):
@@ -323,9 +323,9 @@ def test_moment_plain_matches_jax_on_repeat_rows(k):
     h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
     codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
     h_d, h_a, _ = kernels.hist(*codes)
-    kd, ka = (tf.kept_table(x, 10, 10, False) for x in (h_d, h_a))
-    kd50 = tf.kept_table(h_d, 10, 50, True)
-    ka50 = tf.kept_table(kernels.left_hist(*codes, kd50), 10, 50, True)
+    kd, ka = (tf.kept_table(x, 10, 10, False, Hs, Rs) for x in (h_d, h_a))
+    kd50 = tf.kept_table(h_d, 10, 50, True, Hs, Rs)
+    ka50 = tf.kept_table(kernels.left_hist(*codes, kd50), 10, 50, True, Hs, Rs)
     mom = kernels.moment(*codes, kd, ka, False)
     mom50 = kernels.moment(*codes, kd50, ka50, True)
     mom50_off = kernels.moment(*codes, kd50, ka50, False)
@@ -356,7 +356,7 @@ def test_left_hist_plain_matches_jax_on_repeat_rows(k, m):
     h, r, rl, ms, _ = tf.batch_from_numpy(*batch, k // 10 - 1, "cpu")
     codes = (*tf.row_codes(h, r, rl, k), ms, rl, k)
     h_d, _, _ = kernels.hist(*codes)
-    kd50 = tf.kept_table(h_d, 10, 50, True)
+    kd50 = tf.kept_table(h_d, 10, 50, True, Hs, Rs)
     h_left = kernels.left_hist(*codes, kd50)
     for b in range(B):
         row = [jnp.asarray(x[b]) for x in batch] + [jnp.int32(k // 10 - 1)]
@@ -395,7 +395,7 @@ def _crafted(name):
                                   "even_median", "negative_values"])
 def test_intercept_z_matches_jax_on_crafted_rows(name):
     W, H, h = _crafted(name)
-    found, z = tf.intercept_z(torch.as_tensor(h[None]), H)
+    found, z = tf.intercept_z(torch.as_tensor(h[None]), H, 256)
     j_found, j_z = jf.intercept_z_device(jnp.asarray(h), H)
     assert (bool(found[0]), int(z[0])) == (bool(j_found), int(j_z))
     expect_found = name not in ("empty", "two_way_tie", "sub_tie")
@@ -409,9 +409,9 @@ def test_intercept_z_batches_rows():
     names = ["empty", "one_value", "one_bin", "sub_hi_eq_lo",
              "two_way_tie", "sub_tie", "even_median", "negative_values"]
     rows = np.stack([_crafted(n)[2] for n in names])
-    found, z = tf.intercept_z(torch.as_tensor(rows), 256)
+    found, z = tf.intercept_z(torch.as_tensor(rows), 256, 256)
     for b, row in enumerate(rows):
-        one = tf.intercept_z(torch.as_tensor(row[None]), 256)
+        one = tf.intercept_z(torch.as_tensor(row[None]), 256, 256)
         assert (bool(found[b]), int(z[b])) == (bool(one[0][0]),
                                                int(one[1][0]))
 
@@ -431,7 +431,7 @@ def test_codes_match_jax(k):
     h, r, rl, _, _ = tf.batch_from_numpy(haps, reads, rlens,
                                          np.zeros(4, np.int32), 0, "cpu")
     ch, cf, cd = tf.row_codes(h, r, rl, k)
-    rc = tf.derive_rc_rows(r, rl)
+    rc = kernels.derive_rc_rows(r, rl)
     for b in range(4):
         j_rc = np.asarray(jf._derive_rc_row(jnp.asarray(reads[b]),
                                             jnp.int32(rlens[b])))
@@ -457,7 +457,8 @@ def test_kept_table_matches_jax(thr, fallback):
         idx = rng.integers(0, 640, 60 + 20 * b)
         np.add.at(h[b], idx, rng.integers(1, 30, idx.size))
     h[5] = 0                               # an empty row
-    got = tf.kept_table(torch.as_tensor(h), 10, thr, fallback).numpy()
+    got = tf.kept_table(torch.as_tensor(h), 10, thr, fallback, 256,
+                        256).numpy()
     for b in range(6):
         want = np.asarray(jf.kept_table_device(jnp.asarray(h[b]), 10, thr,
                                                fallback))
@@ -477,7 +478,7 @@ def test_wrappers_reject_bad_input_and_run_plain_on_cpu():
     launched = dict(kernels.LAUNCHES)
     h_d, h_a, scal = kernels.hist(ch, cf, cd, ms, rl, 10)
     assert kernels.LAUNCHES == launched          # CPU: the plain version
-    keep = tf.kept_table(h_d, 10, 10, False)
+    keep = tf.kept_table(h_d, 10, 10, False, 256, 256)
     bad = [
         ((ch, cf, cd, ms, rl, 20), "lanes"),                 # k vs lanes
         ((ch, cf, cd, ms, rl, 15), "k must be"),

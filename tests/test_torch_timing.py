@@ -56,9 +56,9 @@ def test_capture_keeps_each_shapes_first_call_at_k10():
     """fused_batch in mode del at k = 20, then k = 10, and the refiner's
     self-stats rows: one record per (name, route, H, R), at k = 10 where
     a call had it, copies of the arguments, which replay through the
-    route's wrapper (kernels.ROUTES); the wrappers are restored after
-    the block."""
-    wrappers = kernels.ROUTES.values()
+    route's wrapper (kernels.ROUTES; the glue kernels' under route
+    "glue"); the wrappers are restored after the block."""
+    wrappers = (*kernels.ROUTES.values(), *kernels.GLUE_NAMES)
     real = {n: getattr(kernels, n) for n in wrappers}
     haps, reads, rlens, ms, _ = _batch(256, 192, 10, seed=3)
     lengths = torch.tensor([200, 180, 190], dtype=torch.int32)
@@ -68,6 +68,15 @@ def test_capture_keeps_each_shapes_first_call_at_k10():
             fused.fused_batch(haps, reads, rlens, ms, k_idx, 256, 192, "del")
         selfstats = window_device.self_stats_rows(haps[:3], lengths, 20)
     assert {n: getattr(kernels, n) for n in wrappers} == real
+    glue = {key: held for key, held in store.items() if key[1] == "glue"}
+    assert set(glue) == {("row_codes", "glue", 256, 192),
+                         ("kept_tables", "glue", 256, 192),
+                         ("row_codes", "glue", 256, 256)}
+    assert glue["row_codes", "glue", 256, 192][0][3] == 10
+    assert glue["row_codes", "glue", 256, 256][0][3] == 20
+    args, kwargs = glue["kept_tables", "glue", 256, 192]
+    assert args[2:] == (256, 192) and kwargs == {}
+    store = {key: held for key, held in store.items() if key[1] != "glue"}
     assert set(store) == {("hist", "score", 256, 192),
                           ("left_hist", "score", 256, 192),
                           ("moment2", "score", 256, 192),
@@ -114,7 +123,7 @@ def test_tile_rows_cycles_the_real_rows():
 @pytest.mark.parametrize("k", [10, 20, 30, 40])
 def test_hap_lens_from_codes(k):
     haps, reads, rlens, _ = random_rows(320, 256, 6, seed=k)
-    ch = fused.pack_codes(torch.from_numpy(haps), k, HAP_PAD)
+    ch = kernels.pack_codes(torch.from_numpy(haps), k, HAP_PAD)
     want = [int(n) for n in (haps != HAP_PAD).sum(1)]
     assert timing.hap_lens(ch, k) == want
     assert len(set(want)) > 1

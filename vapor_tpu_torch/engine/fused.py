@@ -3,15 +3,15 @@
 Per (read, haplotype) row the engine needs a few exact integers: hit
 counts, the first and last hap row with a hit, and moment sums over the
 hits that survive the reference's 1-D gap-cluster cleaning.  The work
-splits into six kernels (engine/kernels) with small torch steps between
-them, all on the caller's device:
+splits into six dot-plot kernels and three glue kernels (engine/kernels),
+all on the caller's device:
 
-1. ``pack_codes`` / ``rc_dot_codes``: each k-mer becomes ceil(k/8) int32
-   words of 4-bit symbols; the reverse strand's codes are laid out by
-   dot-space column, so both strands compare against the same cells;
+1. ``row_codes``: each k-mer becomes ceil(k/8) int32 words of 4-bit
+   symbols; the reverse strand's codes are laid out by dot-space column,
+   so both strands compare against the same cells;
 2. ``hist``: diagonal (j - i + H) and anti-diagonal (j + i) histograms of
    the hit multiplicity, plus the gate scalars;
-3. ``kept_table``: gap clustering of a histogram into a keep table;
+3. ``kept_tables``: gap clustering of histograms into keep tables;
 4. ``left_hist`` (w10, del): the anti-diagonal histogram of the hits the
    diagonal table drops, for the within-10% second stage;
    ``kept_hist`` (rdd): the diagonal histogram of the kept hits, from
@@ -20,8 +20,10 @@ them, all on the caller's device:
    moment sums over the cells whose bins are kept (rdd adds the
    selection sums around the intercept).
 
-Only the packed per-row integers go to the host, which finishes the
-float math in f64 exactly like the oracle.
+Between them run a few torch ops only: rdd's shift of the intercept, the
+widening of hist's scalars and the concatenation of the packed rows.
+Only those rows go to the host, which finishes the float math in f64
+exactly like the oracle.
 """
 from __future__ import annotations
 
@@ -33,205 +35,45 @@ import torch
 
 from ..parallel.mesh import maybe_mesh_rows
 from . import kernels, oracle
-from .constants import HAP_PAD, READ_PAD, bucket_for
-
-# The engine alphabet: every code the CLI paths can produce (key_modify
-# collapses IUPAC to N/n), the INS 'X' placeholder and '=', and the three
-# never-matching sentinels.  Backends check sequences against _VOCAB_OK
-# and score through the oracle otherwise.
-_VOCAB = np.frombuffer(b"ACGTNacgtn", dtype=np.uint8)
-_VOCAB_OK = np.zeros(256, dtype=bool)
-_VOCAB_OK[_VOCAB] = True
-for _c in b"Xx=":
-    _VOCAB_OK[_c] = True
-_VOCAB_OK[HAP_PAD] = _VOCAB_OK[READ_PAD] = _VOCAB_OK[0xFE] = True
-
-# 4-bit symbol of each admitted byte.  Injective on the 16 bytes of
-# _VOCAB_OK; windows running past a sequence end pick up side-specific
-# pad symbols, so cross-side matches there are impossible.
-_NIB_BYTES = bytes(_VOCAB) + b"Xx=" + bytes([HAP_PAD, READ_PAD, 0xFE])
-_NIB_LUT = np.full(256, 15, dtype=np.int64)
-for _i, _c in enumerate(_NIB_BYTES):
-    _NIB_LUT[_c] = _i
+# backends check sequences against the engine alphabet VOCAB_OK and score
+# through the oracle otherwise
+from .constants import HAP_PAD, READ_PAD, VOCAB_OK, bucket_for
 
 MODES = ("m1b", "w10", "del", "rdd")
 
 
 # ---------------------------------------------------------------------------
-# codes
+# the glue between the six kernels, each a kernel of its own on the card
 # ---------------------------------------------------------------------------
 
-def pack_codes(seqs: torch.Tensor, k: int, pad_byte: int) -> torch.Tensor:
-    """(B, L) uint8 -> (B, lanes, L) int32 rolling packed k-mer codes.
-
-    Lane l packs window symbols [8l, min(8l + 8, k)), 4 bits each;
-    positions whose window runs past the end pack the pad's symbol."""
-    B, L = seqs.shape
-    lanes = -(-k // 8)
-    lut = torch.as_tensor(_NIB_LUT, device=seqs.device)
-    ext = torch.cat([lut[seqs.long()],
-                     torch.full((B, 8 * lanes), int(_NIB_LUT[pad_byte]),
-                                dtype=torch.int64, device=seqs.device)], 1)
-    out = []
-    for lane in range(lanes):
-        acc = torch.zeros((B, L), dtype=torch.int64, device=seqs.device)
-        for t in range(min(8, k - 8 * lane)):
-            s = 8 * lane + t
-            acc |= ext[:, s:s + L] << (4 * t)
-        # the 32 bits as a signed int32 (only equality is ever asked)
-        out.append(torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc))
-    return torch.stack(out, 1).to(torch.int32)
+def row_codes(haps, reads, rlens, k: int, hap_index=None):
+    """(U, H) hap and (B, R) forward read codes -> the kernels' code
+    arrays (ch, cf, cd): hap (one row per read with hap_index), forward
+    and dot-space reverse-strand (kernels.row_codes: the codes kernel on
+    the card, pack_codes / derive_rc_rows / rc_dot_codes on the CPU)."""
+    return kernels.row_codes(haps, reads, rlens, k, hap_index)
 
 
-def derive_rc_rows(reads: torch.Tensor, rlens: torch.Tensor
-                   ) -> torch.Tensor:
-    """(B, R) forward codes -> (B, R) reverse-complement codes followed by
-    a READ_PAD tail: the host's encode_comp(seq)[::-1] + pad, byte for
-    byte (oracle.encode_comp is a code-level LUT)."""
-    B, R = reads.shape
-    comp = torch.as_tensor(oracle._COMP_LUT, device=reads.device)[
-        reads.long()]
-    ext = torch.cat([comp.flip(1), torch.full_like(comp, READ_PAD)], 1)
-    idx = (R - rlens.long())[:, None] + torch.arange(R, device=reads.device)
-    return ext.gather(1, idx)
+def kept_table(h: torch.Tensor, gap: int, thr: int, fallback_max: bool,
+               H: int, R: int) -> torch.Tensor:
+    """(B, W) histograms of an (H, R) batch -> (B, W) bool keep tables
+    (pyx:551-580 semantics): clusters of present values (a gap < `gap`
+    merges) are kept when their weighted total exceeds thr, else, with
+    the fallback, when the total equals the maximum.  One table of
+    kernels.kept_tables."""
+    return kernels.kept_tables((h,), ((thr, fallback_max),), H, R, gap)[0]
 
 
-def rc_dot_codes(rc: torch.Tensor, rlens: torch.Tensor, k: int
-                 ) -> torch.Tensor:
-    """(B, R) rc rows -> (B, lanes, R) codes D with D[:, :, j] the packed
-    rc k-mer at q = rlen - k - j, i.e. indexed by the dot-space column j.
-
-    With rev[p] = crc[R-1-p], crc[rlen-k-j] = rev[(R-1+k-rlen) + j].
-    Holds for rc rows laid out as codes then a READ_PAD tail (what
-    derive_rc_rows makes); columns j > rlen - k carry garbage and are
-    outside every kernel's eligible cells."""
-    B, R = rc.shape
-    rev = pack_codes(rc, k, READ_PAD).flip(2)
-    ext = torch.cat([rev, rev], 2)
-    off = ((R - 1 + k) - rlens.long()).clamp(0, R)
-    idx = off[:, None] + torch.arange(R, device=rc.device)
-    return ext.gather(2, idx[:, None, :].expand(-1, ext.shape[1], -1))
-
-
-# ---------------------------------------------------------------------------
-# gap clustering (exact, pyx:551-580 semantics)
-# ---------------------------------------------------------------------------
-
-def _cummin(x: torch.Tensor) -> torch.Tensor:
-    return -torch.cummax(-x, 1).values
-
-
-def kept_table(h: torch.Tensor, gap: int, thr: int,
-               fallback_max: bool) -> torch.Tensor:
-    """(B, W) histograms -> (B, W) bool keep tables: clusters of present
-    values (a gap < `gap` merges) are kept when their weighted total
-    exceeds thr, else, with the fallback, when the total equals the
-    maximum."""
-    B, W = h.shape
-    h = h.long()
-    idx = torch.arange(W, device=h.device).expand(B, W)
-    nz = h > 0
-    prev_nz = torch.cummax(torch.where(nz, idx, -1), 1).values
-    prev_excl = torch.cat([torch.full_like(prev_nz[:, :1], -1),
-                           prev_nz[:, :-1]], 1)
-    is_start = nz & ((idx - prev_excl >= gap) | (prev_excl < 0))
-    cum = torch.cumsum(h, 1)
-    cum_excl = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
-    cum_before = torch.cummax(torch.where(is_start, cum_excl, -1), 1).values
-    running = cum - cum_before
-    # a segment ends one before the next start, or at the last bin
-    nxt = _cummin(torch.where(is_start, idx, W + 1).flip(1)).flip(1)
-    nxt_excl = torch.cat([nxt[:, 1:], torch.full_like(nxt[:, :1], W + 1)],
-                         1)
-    seg_end = (nxt_excl - 1).clamp(max=W - 1)
-    seg_total = running.gather(1, seg_end)
-    over = nz & (seg_total > thr)
-    if not fallback_max:
-        return over
-    # segment representatives are the start bins (an end bin can be a
-    # trailing zero when the segment runs to the boundary)
-    max_total = torch.where(is_start, seg_total, 0).amax(1, keepdim=True)
-    fallback = nz & (seg_total == max_total)
-    return torch.where(over.any(1, keepdim=True), over, fallback)
-
-
-# ---------------------------------------------------------------------------
-# most-abundant intercept (pyx:582-591, exact integers)
-# ---------------------------------------------------------------------------
-
-_FAR = 2 ** 30      # stands for "no value" in the min/max scans
-
-
-def _bins(v, lo, hi):
-    """Bin index 0..10 of each value: the number of t in 1..10 with
-    10 (v - lo) >= t (hi - lo).  (The shape comes from the broadcast
-    itself: torch.broadcast_shapes imports sympy at its first call,
-    seconds of every new process.)"""
-    d, span = 10 * (v - lo), hi - lo
-    b = torch.zeros_like(d)
-    for t in range(1, 11):
-        b += d >= t * span
-    return b
-
-
-def intercept_z(h: torch.Tensor, H: int):
-    """(B, W) d-histograms over bins j - i + H -> (found (B,) bool,
-    z (B,) int64), z twice the re-centering intercept of each row.
-
-    Two levels of 11 bins and a weighted median, in exact integers: the
-    values v = bin - H with a count are binned between their min and max;
-    each bin of the largest total is binned again between its own min and
-    max; z is v1 + v2, the values at ranks (n - 1) // 2 + 1 and n // 2 + 1
-    of the sub-bin of the largest total.  A row finds an intercept only
-    when it is not empty and exactly one sub-bin wins over all winning
-    bins; otherwise z is 0.  Stays on the tensors' device (no host sync).
-    """
-    B, W = h.shape
-    h = h.long()
-    v = (torch.arange(W, device=h.device) - H).expand(B, W)
-    nz = h > 0
-    lo = torch.where(nz, v, _FAR).amin(1, keepdim=True)
-    hi = torch.where(nz, v, -_FAR).amax(1, keepdim=True)
-    hz = torch.where(nz, h, 0)
-    b1 = _bins(v, lo, hi)
-    counts1 = torch.zeros((B, 11), dtype=torch.int64,
-                          device=h.device).scatter_add_(1, b1, hz)
-    win1 = counts1 == counts1.amax(1, keepdim=True)
-    # every first-level bin t at once: (B, 11, W)
-    in_bin = nz[:, None, :] & (b1[:, None, :] ==
-                               torch.arange(11, device=h.device)[:, None])
-    vv = v[:, None, :]
-    s_lo = torch.where(in_bin, vv, _FAR).amin(2, keepdim=True)
-    s_hi = torch.where(in_bin, vv, -_FAR).amax(2, keepdim=True)
-    b2 = _bins(vv, s_lo, s_hi)
-    h_in = torch.where(in_bin, h[:, None, :], 0)
-    counts2 = torch.zeros((B, 11, 11), dtype=torch.int64,
-                          device=h.device).scatter_add_(2, b2, h_in)
-    top2 = counts2 == counts2.amax(2, keepdim=True)
-    n_win2 = top2.sum(2)
-    wb = top2.int().argmax(2, keepdim=True)      # first winning sub-bin
-    hsel = torch.where(b2 == wb, h_in, 0)
-    n = hsel.sum(2, keepdim=True)
-    cums = hsel.cumsum(2)
-    v1 = torch.where(cums >= (n - 1) // 2 + 1, vv, _FAR).amin(2)
-    v2 = torch.where(cums >= n // 2 + 1, vv, _FAR).amin(2)
-    n_wins = torch.where(win1, n_win2, 0)
-    pick = (n_wins > 0).int().argmax(1, keepdim=True)
-    found = (h.sum(1) > 0) & (n_wins.sum(1) == 1)
-    z = torch.where(found, (v1 + v2).gather(1, pick)[:, 0], 0)
-    return found, z
+def intercept_z(h: torch.Tensor, H: int, R: int):
+    """(B, W) d-histograms of an (H, R) batch over bins j - i + H ->
+    (found (B,) bool, z (B,) int64), z twice the re-centering intercept
+    of each row (pyx:582-591, exact integers; kernels.intercept_z)."""
+    return kernels.intercept_z(h, H, R)
 
 
 # ---------------------------------------------------------------------------
 # per-row statistics
 # ---------------------------------------------------------------------------
-
-def row_codes(haps, reads, rlens, k: int):
-    """(B, H) hap and (B, R) forward read codes -> the kernels' code
-    arrays (ch, cf, cd): hap, forward and dot-space reverse-strand."""
-    return (pack_codes(haps, k, HAP_PAD), pack_codes(reads, k, READ_PAD),
-            rc_dot_codes(derive_rc_rows(reads, rlens), rlens, k))
-
 
 def fused_rows(haps, reads, rlens, ms, k: int, scorer: str,
                hap_index=None):
@@ -248,17 +90,24 @@ def fused_rows(haps, reads, rlens, ms, k: int, scorer: str,
     if scorer not in MODES:
         raise ValueError(f"unknown device mode {scorer!r}; want one of "
                          f"{MODES}")
-    ch, cf, cd = row_codes(haps, reads, rlens, k)
-    if hap_index is not None:
-        ch = ch.index_select(0, hap_index)
-    codes = (ch, cf, cd, ms, rlens, k)
+    H, R = haps.shape[1], reads.shape[1]
+    codes = (*kernels.row_codes(haps, reads, rlens, k, hap_index), ms,
+             rlens, k)
     h_d, h_a, scal = kernels.hist(*codes)
-    if scorer in ("m1b", "del", "rdd"):
-        kd = kept_table(h_d, 10, 10, False)
-        ka = kept_table(h_a, 10, 10, False)
+    # the keep tables: 10-threshold (kd, ka), 50-threshold with the max
+    # fallback (kd50, then ka50 over left_hist's histogram); one launch
+    # for those whose histograms are ready
+    m1b_tables = ((h_d, h_a), ((10, False), (10, False)))
+    if scorer in ("m1b", "rdd"):
+        kd, ka = kernels.kept_tables(*m1b_tables, H, R)
+    elif scorer == "del":
+        kd, ka, kd50 = kernels.kept_tables(
+            (*m1b_tables[0], h_d), (*m1b_tables[1], (50, True)), H, R)
+    else:
+        kd50, = kernels.kept_tables((h_d,), ((50, True),), H, R)
     if scorer in ("w10", "del"):
-        kd50 = kept_table(h_d, 10, 50, True)
-        ka50 = kept_table(kernels.left_hist(*codes, kd50), 10, 50, True)
+        ka50, = kernels.kept_tables((kernels.left_hist(*codes, kd50),),
+                                    ((50, True),), H, R)
     if scorer == "m1b":
         mom = kernels.moment(*codes, kd, ka, want_w10=False)
     elif scorer == "w10":
@@ -268,12 +117,11 @@ def fused_rows(haps, reads, rlens, ms, k: int, scorer: str,
     else:
         # the histogram holds j - i = d - m: shift the median back only
         # when an intercept was found (no intercept means z = 0)
-        found, z = intercept_z(kernels.kept_hist(*codes, kd, ka),
-                               haps.shape[1])
+        found, z = kernels.intercept_z(kernels.kept_hist(*codes, kd, ka),
+                                       H, R)
         z = torch.where(found, z + 2 * ms, 0).to(torch.int32)
         mom = kernels.rdd_moment(*codes, kd, ka, z)
-    return h_d, h_a, torch.cat([kernels.hist_scal(scal, haps.shape[1]), mom],
-                               1)
+    return h_d, h_a, torch.cat([kernels.hist_scal(scal, H), mom], 1)
 
 
 def batch_from_numpy(haps: np.ndarray, reads: np.ndarray,
@@ -282,8 +130,10 @@ def batch_from_numpy(haps: np.ndarray, reads: np.ndarray,
     """The JAX engine's numpy batch -> fused_batch's leading arguments on
     `device`: (haps (B, H) uint8, reads (B, R) uint8 forward codes with a
     READ_PAD tail, rlens (B,) int32, ms (B,) int32, k_idx in 0..3)."""
-    def put(a, dtype):     # a copy: `a` may be a read-only broadcast
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    def put(a, dtype):     # a C-order copy: `a` may be a read-only
+        # broadcast, and the kernels take contiguous rows
+        return torch.from_numpy(np.array(a, dtype=dtype,
+                                         order="C")).to(device)
     return (put(haps, np.uint8), put(reads, np.uint8),
             put(rlens, np.int32), put(ms, np.int32), int(k_idx))
 
@@ -455,8 +305,8 @@ class FusedBackend:
                  (alt_seq, H_a))]
         encs = [(idxs, self._encode_reads([reads[i] for i in idxs], R))
                 for R, idxs in r_groups]
-        if not (all(_VOCAB_OK[h].all() for h in haps)
-                and all(_VOCAB_OK[enc[0]].all()
+        if not (all(VOCAB_OK[h].all() for h in haps)
+                and all(VOCAB_OK[enc[0]].all()
                         for _, enc in encs)):
             out = ([oracle.SCORERS["abs_dis_m1b"](
                         ref_seq, alt_seq, r[0], r[1], window)
@@ -573,8 +423,8 @@ class FusedBackend:
         ha = self._encode_hap(alt_s, H_a)
         encs = [(idxs, self._encode_reads([reads[i] for i in idxs], R))
                 for R, idxs in r_groups]
-        if not (_VOCAB_OK[hr].all() and _VOCAB_OK[ha].all()
-                and all(_VOCAB_OK[enc[0]].all()
+        if not (VOCAB_OK[hr].all() and VOCAB_OK[ha].all()
+                and all(VOCAB_OK[enc[0]].all()
                         for _, enc in encs)):
             out = [oracle.SCORERS[scorer](ref_seq, alt_seq, r[0], r[1],
                                           window) for r in reads]

@@ -43,6 +43,20 @@ ROUTE_POINTS = {
 # that reports its grid: (B, H, R, lanes, device index, int[5] out); a
 # route of ROUTE_POINTS reports its own through <its entry point>_grid
 GRID_POINTS = {name: f"vt_{name}_grid" for name in ENTRY_POINTS}
+_LL = ctypes.c_longlong
+# glue kernel (kernels.GLUE_NAMES; none walks walk.cuh, none has a grid
+# query) -> (source in csrc/ without .cu, C entry point, argtypes)
+GLUE_POINTS = {
+    # haps reads rlens hap_index, U B H R lanes k, ch cf cd
+    "row_codes": ("codes", "vt_row_codes",
+                  [_P] * 4 + [_I] * 6 + [_P] * 3 + _TAIL),
+    # out, 4 histograms, 4 thresholds, fallback bits, n B W gap
+    "kept_tables": ("kept_table", "vt_kept_tables",
+                    [_P] * 5 + [_LL] * 4 + [_I] * 5 + _TAIL),
+    # h, B W H, z found
+    "intercept_z": ("intercept", "vt_intercept_z",
+                    [_P] + [_I] * 3 + [_P] * 2 + _TAIL),
+}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes._CFuncPtr] = {}     # C symbol -> function
@@ -56,17 +70,22 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def source(name: str) -> str:
+    """The kernel's source file in csrc/."""
+    return f"{GLUE_POINTS[name][0] if name in GLUE_POINTS else name}.cu"
+
+
 def library_path(name: str) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(x for x in os.listdir(CSRC) if x.endswith(".cuh"))
-    for src in (f"{name}.cu", *headers):
+    for src in (source(name), *headers):
         digest.update(src.encode())
         with open(os.path.join(CSRC, src), "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = tuple(ENTRY_POINTS),
+def build(names: Iterable[str] = (*ENTRY_POINTS, *GLUE_POINTS),
           extra_flags: Iterable[str] = ()) -> Dict[str, str]:
     """Compiles every named kernel whose library is missing, one nvcc
     process per source, all started together.  Returns nvcc's output of
@@ -79,14 +98,14 @@ def build(names: Iterable[str] = tuple(ENTRY_POINTS),
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+               os.path.join(CSRC, source(name))]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     logs, failed = {}, []
     for name, out, tmp, proc in jobs:
         logs[name] = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
-            failed.append(f"{name}.cu:\n{logs[name]}")
+            failed.append(f"{source(name)}:\n{logs[name]}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -109,8 +128,10 @@ def _function(name: str, symbol: str, argtypes):
 
 
 def entry_point(name: str, route: str = "score"):
-    """The C launch function of the kernel's route, building its library
-    if needed."""
+    """The C launch function of the kernel's route (route "glue" for a
+    glue kernel), building its library if needed."""
+    if route == "glue":
+        return _function(name, *GLUE_POINTS[name][1:])
     return _function(name, *ROUTE_POINTS.get((name, route),
                                              ENTRY_POINTS[name]))
 

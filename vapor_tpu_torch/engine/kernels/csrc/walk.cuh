@@ -69,7 +69,7 @@ constexpr int GROUP = 4;                 // hap rows per 16-byte shared load
 // spilled (chip_smoke.py phase 1)
 constexpr int TILE_BLOCKS = 5;
 // eight symbols of HAP_PAD (nibble 13) and of READ_PAD (nibble 14), in
-// the packing of engine/fused.py pack_codes
+// the packing of kernels.pack_codes
 constexpr unsigned ROW_SENTINEL = 0xDDDDDDDDu;
 constexpr unsigned COL_SENTINEL = 0xEEEEEEEEu;
 

@@ -43,7 +43,10 @@ def bound(nbytes: float, ops: float) -> Tuple[float, str]:
 
 
 def tensor_bytes(tensors: Sequence) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """Bytes of the tensors, each distinct one counted once: a function
+    given the same tensor twice needs to move it only once."""
+    return sum(n * size for _, n, size in {
+        (t.data_ptr(), t.numel(), t.element_size()) for t in tensors})
 
 
 def kernel_work(name: str, codes, hap_lens: Sequence[int], outs,
@@ -61,6 +64,45 @@ def kernel_work(name: str, codes, hap_lens: Sequence[int], outs,
                 for n, m, rl in zip(hap_lens, ms.tolist(), rlens.tolist()))
     ops = cells * 2 + hits * (lanes - 1 + HIT_OPS[name])
     return tensor_bytes((ch, cf, cd, ms, rlens, *tables, *outs)), ops
+
+
+# integer operations per histogram bin of a keep table (is it nonzero, is
+# it a cluster start, its add to the cluster's total, the keep test) and
+# of an intercept's first pass (its add to the row's sum, is it nonzero,
+# the min and max); a nonzero bin of an intercept row is also binned
+# (ten compares, ten multiplies, two adds)
+KEPT_OPS_PER_BIN = 4
+INTERCEPT_OPS_PER_BIN = 3
+INTERCEPT_OPS_PER_VALUE = 22
+
+
+def codes_work(haps, reads, rlens, outs, k: int, hap_index=None
+               ) -> Tuple[int, int]:
+    """(bytes, operations) of row_codes: hap and read bytes, lengths (and
+    hap_index) in, the three code arrays `outs` out; a shift and an or
+    per symbol of each k-mer window of the hap rows, the reads and their
+    reverse strands."""
+    ch, cf, _ = outs
+    ins = (haps, reads, rlens) + (() if hap_index is None else (hap_index,))
+    return (tensor_bytes((*ins, *outs)),
+            2 * k * (ch.shape[0] * ch.shape[2] + 2 * cf.shape[0] *
+                     cf.shape[2]))
+
+
+def kept_tables_work(hs, outs) -> Tuple[int, int]:
+    """(bytes, operations) of one kept_tables call: each table's (B, W)
+    histogram in, its (B, W) bool table out; KEPT_OPS_PER_BIN a bin."""
+    return (tensor_bytes((*hs, *outs)),
+            KEPT_OPS_PER_BIN * sum(h.numel() for h in hs))
+
+
+def intercept_work(h, outs) -> Tuple[int, int]:
+    """(bytes, operations) of one intercept_z call: the (B, W) histogram
+    in, found and z out; INTERCEPT_OPS_PER_BIN a bin and
+    INTERCEPT_OPS_PER_VALUE a nonzero bin (this call's data)."""
+    return (tensor_bytes((h, *outs)),
+            INTERCEPT_OPS_PER_BIN * h.numel() +
+            INTERCEPT_OPS_PER_VALUE * int((h > 0).sum()))
 
 
 def lost_ms(launch_shapes: Mapping[tuple, int], device_ms: Mapping,

@@ -1,5 +1,6 @@
-"""Device time of the six kernels, apart from the host work of their
-wrappers, at the shapes the main path launches them at.
+"""Device time of the kernels (the six dot-plot kernels and the three
+glue kernels), apart from the host work of their wrappers, at the shapes
+the main path launches them at.
 
 A wrapper call is host work (argument checks, output allocation, the
 ctypes call) and device work (the C entry point's memset of the outputs
@@ -10,14 +11,16 @@ Here:
 
 * ``capture`` records, during a main-path run, the arguments of the
   first call of each wrapper at each (name, route, H, R), the keys of
-  ``kernels.LAUNCH_SHAPES``;
+  ``kernels.LAUNCH_SHAPES`` (route "glue" for the glue kernels);
 * ``tile_rows`` makes a batch of B rows from such a call's real rows;
 * ``device_ms`` times the kernel's C entry point on the pointers its
   wrapper passes, taking turns over two batches, behind a spin kernel
   that holds the stream until the host has queued every call, so that no
   host gap falls inside the window;
 * ``host_us`` times the host side of a wrapper call, ``call_ms`` a whole
-  call.
+  call;
+* ``busy_ms`` sums the device time of a call that a window cannot hold
+  (torch ops that synchronize the host), under torch.profiler.
 
 Nothing runs at import; the timings need a CUDA card.
 """
@@ -40,26 +43,57 @@ SPIN_CYCLES = 20_000_000
 SPIN_TRIES = 4
 
 
+def _each_tensor(args: Sequence, fn: Callable) -> tuple:
+    """A wrapper's arguments with fn applied to every tensor in them (a
+    tuple's too), once per distinct tensor: one given twice, as del's
+    kept_tables launch gives h_d, stays one tensor."""
+    done: Dict[int, torch.Tensor] = {}
+
+    def each(a):
+        if isinstance(a, torch.Tensor):
+            if id(a) not in done:
+                done[id(a)] = fn(a)
+            return done[id(a)]
+        return tuple(each(x) for x in a) if isinstance(a, tuple) else a
+    return each(tuple(args))
+
+
+def glue_key(name: str, args: Sequence) -> tuple:
+    """The (name, "glue", H, R) key a glue wrapper's call counts under in
+    kernels.LAUNCH_SHAPES, and its k (None where it takes none)."""
+    if name == "row_codes":
+        return (name, "glue", args[0].shape[1], args[1].shape[1]), args[3]
+    h, (H, R) = (args[0][0], args[2:4]) if name == "kept_tables" \
+        else (args[0], args[1:3])
+    return (name, "glue", *kernels._glue_shape(h.shape[1], H, R)), None
+
+
 @contextlib.contextmanager
 def capture(store: Dict[tuple, tuple]):
     """Within the block, every wrapper call also records, at the first
     call of each (name, route, H, R) key, a copy of its arguments in
     `store` as key -> (args, kwargs); a later call at k = 10, the
     scoring and refiner k, replaces a first call at another k.  The
-    wrappers (kernels.ROUTES) run as they do outside the block."""
-    real = {wrapper: getattr(kernels, wrapper)
-            for wrapper in kernels.ROUTES.values()}
+    wrappers (kernels.ROUTES, and the glue kernels') run as they do
+    outside the block."""
+    routes = {**kernels.ROUTES,
+              **{(name, "glue"): name for name in kernels.GLUE_NAMES}}
+    real = {wrapper: getattr(kernels, wrapper) for wrapper in routes.values()}
+
+    def key_of(route, args, kwargs):
+        if route[1] == "glue":
+            return glue_key(route[0], args)
+        return (*route, args[0].shape[2], args[1].shape[2]), args[5]
 
     def recording(route, wrapper, *args, **kwargs):
-        ch, cf, k = args[0], args[1], args[5]
-        key = (*route, ch.shape[2], cf.shape[2])
+        key, k = key_of(route, args, kwargs)
         held = store.get(key)
-        if held is None or (held[0][5] != 10 and k == 10):
-            store[key] = (tuple(a.clone() if isinstance(a, torch.Tensor)
-                                else a for a in args), dict(kwargs))
+        if held is None or (k == 10 and key_of(route, *held)[1] != 10):
+            store[key] = (_each_tensor(args, torch.Tensor.clone),
+                          dict(kwargs))
         return real[wrapper](*args, **kwargs)
 
-    for route, wrapper in kernels.ROUTES.items():
+    for route, wrapper in routes.items():
         setattr(kernels, wrapper, functools.partial(recording, route,
                                                     wrapper))
     try:
@@ -87,24 +121,24 @@ def hap_lens(ch: torch.Tensor, k: int) -> List[int]:
     lane-0 word is not that of a window wholly in HAP_PAD (lane 0 packs 8
     symbols, so that word starts at the hap's end)."""
     from ..constants import HAP_PAD
-    from ..fused import pack_codes
-    pad = pack_codes(torch.full((1, 8), HAP_PAD, dtype=torch.uint8,
-                                device=ch.device), k, HAP_PAD)[0, 0, 0]
+    pad = kernels.pack_codes(torch.full((1, 8), HAP_PAD, dtype=torch.uint8,
+                                        device=ch.device), k, HAP_PAD)[0, 0, 0]
     return [int(n) for n in (ch[:, 0] != pad).sum(1)]
 
 
 def rolled(args: Sequence) -> tuple:
     """A second batch of the same rows: every per-row tensor of a
-    wrapper's arguments rolled by one row, into new memory."""
-    return tuple(a.roll(1, 0).contiguous() if isinstance(a, torch.Tensor)
-                 else a for a in args)
+    wrapper's arguments (a tuple's too) rolled by one row, into new
+    memory."""
+    return _each_tensor(args, lambda t: t.roll(1, 0).contiguous())
 
 
 class _Launch:
     """The launch of one wrapper call, recorded instead of made: the
-    kernel's name and route and the arguments `_launch` got (the same
-    pointers; the card's index apart).  The C entry point zeroes the
-    outputs itself, so its memset is timed with the kernel."""
+    kernel's name and route and the arguments `_launch` (or
+    `_launch_glue`, route "glue") got (the same pointers; the card's
+    index apart).  The C entry point zeroes the outputs itself, so its
+    memset is timed with the kernel."""
 
     def __init__(self, call: Callable):
         seen = []
@@ -112,12 +146,15 @@ class _Launch:
         def record(name, ch, *args, route="score"):
             seen.append((name, route, ch, args))
 
-        real = kernels._launch
-        kernels._launch = record
+        def record_glue(name, shape, first, *args):
+            seen.append((name, "glue", first, args))
+
+        real = kernels._launch, kernels._launch_glue
+        kernels._launch, kernels._launch_glue = record, record_glue
         try:
             call()
         finally:
-            kernels._launch = real
+            kernels._launch, kernels._launch_glue = real
         if len(seen) != 1:
             raise RuntimeError(f"want one launch from the call, got "
                                f"{len(seen)}: is it a wrapper call on "
@@ -179,6 +216,30 @@ def device_ms(calls: Sequence[Callable], n: int = 50) -> float:
                                f"error {err}")
 
     return _window_ms([functools.partial(step, x) for x in launches], n)
+
+
+def busy_ms(calls: Sequence[Callable], n: int = 10) -> float:
+    """ms of one call's device work for calls that a spin window cannot
+    hold (a sequence of torch ops whose host work outlasts the spin, or
+    whose uploads synchronize the host, as the glue kernels' plain
+    versions do): n calls, taking turns over
+    `calls`, under torch.profiler, and the device time of every kernel,
+    copy and fill the card ran for them (host gaps between the ops are
+    not counted), over n."""
+    from torch.profiler import ProfilerActivity, profile
+    for call in calls:                      # warm
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type.name == "CUDA":
+            us += float(getattr(evt, "self_device_time_total",
+                                getattr(evt, "self_cuda_time_total", 0.0)))
+    return us / 1e3 / n
 
 
 def host_us(calls: Sequence[Callable], n: int = 50) -> float:

@@ -24,8 +24,8 @@ import torch
 
 from ..utils.coro import drain
 from . import kernels, oracle
-from .constants import HAP_PAD, READ_PAD, bucket_for
-from .fused import _VOCAB_OK, row_codes
+from .constants import HAP_PAD, READ_PAD, VOCAB_OK, bucket_for
+from .fused import row_codes
 from .window import (qual_check_repetitive_region, self_dot_arrays,
                      window_size_refine)
 
@@ -104,7 +104,7 @@ class DeviceWindowRefiner:
             BAND_STATS["unbucketable_host_refines"] += 1
             return _host_refine(seq, self.region_qc_cff, self.seed)
         codes = oracle.encode(seq)
-        if not _VOCAB_OK[codes].all():
+        if not VOCAB_OK[codes].all():
             BAND_STATS["vocab_host_refines"] += 1
             return _host_refine(seq, self.region_qc_cff, self.seed)
         hap = np.full(H, HAP_PAD, dtype=np.uint8)

@@ -68,6 +68,6 @@ def _report() -> None:
                                        key=lambda kv: -kv[1][1]):
         print(f"{name:10s} calls={count:6d} total={total:8.3f}s "
               f"avg={total / max(count, 1) * 1e3:8.2f}ms", file=sys.stderr)
-    for name in kernels.NAMES:
+    for name in kernels.ALL_NAMES:
         print(f"kernel {name} launches={kernels.LAUNCHES[name]}",
               file=sys.stderr)

@@ -30,6 +30,7 @@ Flow quirks preserved from the reference:
 from __future__ import annotations
 
 import argparse
+import atexit
 import functools
 import os
 import sys
@@ -40,6 +41,7 @@ from .config import DEFAULT_CONFIG
 from .io.parsers import (bed4_info_readin, bed_info_readin, melt_records,
                          svelter_readin, vcf_list_readin)
 from .stats.genotype import organize_result
+from .utils import trace
 from .utils.coro import run_pipelined
 from .validators import ValidatorContext
 from .writers.tsv import append_result_row, initiate_output
@@ -85,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-figures", action="store_true",
                         help="skip per-event recurrence-plot PNGs")
     parser.add_argument("--trace", action="store_true",
-                        help="per-stage timing and kernel launches to "
-                             "stderr")
+                        help="at exit, print to stderr each span's count, "
+                             "total and self time, the counters and each "
+                             "kernel's launches")
     parser.add_argument("--shard-index", type=int, default=0,
                         help="worklist shard to process (multi-host)")
     parser.add_argument("--num-shards", type=int, default=1,
@@ -149,7 +152,9 @@ def _dist_finalize(local_out: str, final_out: str, dist) -> None:
     """Gathers every process's result rows and writes the merged output
     on rank 0: the in-job replacement for the WDL ConcatVaPoR file merge
     (TasksBenchmark.wdl:249-317).  The gather doubles as the end-of-run
-    barrier."""
+    barrier.  Nothing to do in a single-process run (dist None)."""
+    if not dist:
+        return
     from .orchestrate import _version_key
     from .parallel.multihost import allgather_rows
     header = None
@@ -195,8 +200,10 @@ def _resume_keys(out_name: str):
     return done
 
 
-def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
-            fig_ext: str = "png", bed4: bool = False) -> None:
+def plan_bed(args, ctx: ValidatorContext, num_reads_cff: int,
+             fig_ext: str = "png", bed4: bool = False):
+    """(tasks, emit, finish) of a bed run: the event generators for
+    run_pipelined, the row writer, and what follows the last row."""
     out_path = _path_modify(args.output_path)
     os.makedirs(out_path, exist_ok=True)
     dist = args.dist
@@ -278,12 +285,11 @@ def run_bed(args, ctx: ValidatorContext, num_reads_cff: int,
                           result[0].split(":") + [svid] + result[1:])
         print(result)
 
-    run_pipelined(tasks, emit, args.pipeline)
-    if dist:
-        _dist_finalize(out_name, final_out, dist)
+    return tasks, emit, functools.partial(_dist_finalize, out_name,
+                                          final_out, dist)
 
 
-def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
+def plan_vcf(args, ctx: ValidatorContext, num_reads_cff: int):
     out_path = _path_modify(args.output_path)
     os.makedirs(out_path, exist_ok=True)
     sample = _sample_name(args.sv_input)
@@ -378,15 +384,15 @@ def run_vcf(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
                 return None, None
             tasks.append(task)
 
-    run_pipelined(tasks, emit, args.pipeline)
-    if dist:
+    def finish():
         _dist_finalize(out_name, final_out, dist)
-        if dist[0] != 0:
-            return
-    annotate_vcf(args.sv_input, invert_record_keys(rec_hash))
+        if not dist or dist[0] == 0:
+            annotate_vcf(args.sv_input, invert_record_keys(rec_hash))
+
+    return tasks, emit, finish
 
 
-def run_ins(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
+def plan_ins(args, ctx: ValidatorContext, num_reads_cff: int):
     """MELT prefix mode (semantics of vapor_pdf:43-108)."""
     from .io.fasta import FastaFile
     out_path = _path_modify(args.output_path)
@@ -417,13 +423,11 @@ def run_ins(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
     def emit(key_event, scores):
         append_result_row(out_name, organize_result(key_event, scores))
 
-    run_pipelined([functools.partial(task, *rec) for rec in records],
-                  emit, args.pipeline)
-    if dist:
-        _dist_finalize(out_name, final_out, dist)
+    return ([functools.partial(task, *rec) for rec in records], emit,
+            functools.partial(_dist_finalize, out_name, final_out, dist))
 
 
-def run_svelter(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
+def plan_svelter(args, ctx: ValidatorContext, num_reads_cff: int):
     out_path = _path_modify(args.output_path)
     os.makedirs(out_path, exist_ok=True)
     dist = args.dist
@@ -451,9 +455,8 @@ def run_svelter(args, ctx: ValidatorContext, num_reads_cff: int) -> None:
     def emit(key_event, scores):
         append_result_row(out_name, organize_result(key_event, scores))
 
-    run_pipelined(tasks, emit, args.pipeline)
-    if dist:
-        _dist_finalize(out_name, args.output_file, dist)
+    return tasks, emit, functools.partial(_dist_finalize, out_name,
+                                          args.output_file, dist)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -505,31 +508,40 @@ def _run(args) -> int:
                         ("--no-figures", args.no_figures),
                         ("--trace", args.trace)) if on])
         return 0
-    try:
-        ctx = ValidatorContext(args.reference, args.pacbio_input,
-                               backend=args.backend, device=args.device,
-                               figures=not args.no_figures)
-    except RuntimeError as exc:      # CUDA asked for and absent
-        print(f"vapor-tpu-torch: {exc}", file=sys.stderr)
-        return 2
     if args.trace:
-        from .utils.trace import enable_trace
-        enable_trace(ctx)
-    if args.mode == "bed":
-        run_bed(args, ctx, num_reads_cff, fig_ext=args.figure_format)
-    elif args.mode == "pdf":
-        # vapor_pdf twin: 4-column BED, default min-reads 10, PDF figures,
-        # output written next to the input (vapor_pdf:92-138)
-        if not args.PB_supp:
-            num_reads_cff = 10
-        args.output_file = args.output_file or args.sv_input + ".vapor"
-        run_bed(args, ctx, num_reads_cff, fig_ext="pdf", bed4=True)
-    elif args.mode == "vcf":
-        run_vcf(args, ctx, num_reads_cff)
-    elif args.mode == "ins":
-        run_ins(args, ctx, num_reads_cff)
-    else:
-        run_svelter(args, ctx, num_reads_cff)
+        trace.enable()
+        atexit.register(trace.report)
+    with trace.span("cli.setup"):
+        try:
+            ctx = ValidatorContext(args.reference, args.pacbio_input,
+                                   backend=args.backend, device=args.device,
+                                   figures=not args.no_figures)
+        except RuntimeError as exc:      # CUDA asked for and absent
+            print(f"vapor-tpu-torch: {exc}", file=sys.stderr)
+            return 2
+        if args.mode == "bed":
+            plan = plan_bed(args, ctx, num_reads_cff,
+                            fig_ext=args.figure_format)
+        elif args.mode == "pdf":
+            # vapor_pdf twin: 4-column BED, default min-reads 10, PDF
+            # figures, output written next to the input
+            # (vapor_pdf:92-138)
+            if not args.PB_supp:
+                num_reads_cff = 10
+            args.output_file = args.output_file or \
+                args.sv_input + ".vapor"
+            plan = plan_bed(args, ctx, num_reads_cff, fig_ext="pdf",
+                            bed4=True)
+        elif args.mode == "vcf":
+            plan = plan_vcf(args, ctx, num_reads_cff)
+        elif args.mode == "ins":
+            plan = plan_ins(args, ctx, num_reads_cff)
+        else:
+            plan = plan_svelter(args, ctx, num_reads_cff)
+    tasks, emit, finish = plan
+    run_pipelined(tasks, trace.spanned("emit")(emit), args.pipeline)
+    with trace.span("cli.finish"):
+        finish()
     return 0
 
 

@@ -34,6 +34,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..utils import trace
 from .fused import FusedBackend, fused_batch
 from .window_device import self_stats_rows
 
@@ -61,7 +62,8 @@ class _Req:
             raise self.error
         host, done = self.group
         if done is not None:
-            done.synchronize()
+            with trace.span("batch.sync"):
+                done.synchronize()
         return None, None, host.numpy()[self.row:self.row + self.B]
 
 
@@ -127,7 +129,8 @@ class BatchingBackend(FusedBackend):
         try:
             with self._lock:
                 batch, self._pending = self._pending, []
-            self._flush(batch)
+            with trace.span("batch.flush"):
+                self._flush(batch)
         finally:
             self._flush_lock.release()
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import maybe_mesh_rows
+from ..utils import trace
 from . import kernels, oracle
 # backends check sequences against the engine alphabet VOCAB_OK and score
 # through the oracle otherwise
@@ -279,6 +280,7 @@ class FusedBackend:
             hap_index=torch.zeros(fw.shape[0], dtype=torch.int64,
                                   device=self.device)))
 
+    @trace.spanned("dispatch")
     def score_del_batch_async(self, ref_seq: str, alt_seq: str,
                               reads: Sequence[Sequence], window: int):
         """Combined DEL scoring; returns a finisher producing
@@ -392,6 +394,7 @@ class FusedBackend:
             groups.setdefault(bucket_for(len(r[0]) + 1), []).append(i)
         return sorted(groups.items())
 
+    @trace.spanned("dispatch")
     def score_batch_async(self, scorer: str, ref_seq: str,
                           alt_seq: str, reads: Sequence[Sequence],
                           window: int):

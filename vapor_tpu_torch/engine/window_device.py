@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.coro import drain
 from . import kernels, oracle
 from .constants import HAP_PAD, READ_PAD, VOCAB_OK, bucket_for
@@ -93,49 +94,50 @@ class DeviceWindowRefiner:
         """Generator form of refine: yields zero-arg finishers for each
         device round trip and each band QC, so a cooperative scheduler
         (utils/coro.py) can overlap events (the control flow of
-        window_size_refine)."""
-        seq = seq.replace("X", "")
-        if seq.count("N") + seq.count("n") > 100:
-            return None
-        BAND_STATS["refine_calls"] += 1
-        try:
-            H = bucket_for(len(seq) + 1)
-        except ValueError:
-            BAND_STATS["unbucketable_host_refines"] += 1
-            return _host_refine(seq, self.region_qc_cff, self.seed)
-        codes = oracle.encode(seq)
-        if not VOCAB_OK[codes].all():
-            BAND_STATS["vocab_host_refines"] += 1
-            return _host_refine(seq, self.region_qc_cff, self.seed)
-        hap = np.full(H, HAP_PAD, dtype=np.uint8)
-        hap[: len(codes)] = codes
-        window = 10
-        BAND_STATS["stat_rounds"] += 1
-        total, diag, below = yield self._stats_async(hap, len(codes),
-                                                     window)
+        window_size_refine).  Its host work between two yields is one
+        ``refine`` span each."""
+        with trace.span("refine"):
+            seq = seq.replace("X", "")
+            if seq.count("N") + seq.count("n") > 100:
+                return None
+            BAND_STATS["refine_calls"] += 1
+            try:
+                H = bucket_for(len(seq) + 1)
+            except ValueError:
+                BAND_STATS["unbucketable_host_refines"] += 1
+                return _host_refine(seq, self.region_qc_cff, self.seed)
+            codes = oracle.encode(seq)
+            if not VOCAB_OK[codes].all():
+                BAND_STATS["vocab_host_refines"] += 1
+                return _host_refine(seq, self.region_qc_cff, self.seed)
+            hap = np.full(H, HAP_PAD, dtype=np.uint8)
+            hap[: len(codes)] = codes
+            window = 10
+            BAND_STATS["stat_rounds"] += 1
+            fin = self._stats_async(hap, len(codes), window)
+        total, diag, below = yield fin
         if total == 0:
             return None
-        while True:
-            if window > 30:
-                break
-            if diag / total > self.region_qc_cff:
-                break
-            if not (0.1 < below / total < 0.5):
-                # size_cluster is [0] -> the mass test fails -> break
-                break
+        # size_cluster is [0] outside the (0.1, 0.5) band -> the mass
+        # test fails -> the window stands
+        while window <= 30 and diag / total <= self.region_qc_cff and \
+                0.1 < below / total < 0.5:
             # repeat-heavy case (tandem arrays, DUP alt haps): the exact
             # host QC, on a worker thread whose Future.result the
             # pipeline resolves like any device finisher
-            BAND_STATS["band_hits"] += 1
-            qc = yield _qc_pool().submit(
-                _band_qc, window, seq, self.seed).result
+            with trace.span("refine"):
+                BAND_STATS["band_hits"] += 1
+                fin = _qc_pool().submit(_band_qc, window, seq,
+                                        self.seed).result
+            qc = yield fin
             if qc[0] > self.region_qc_cff or \
                     sum(qc[1]) / len(seq) < 0.3:
                 break
-            window += 10
-            BAND_STATS["stat_rounds"] += 1
-            total, diag, below = yield self._stats_async(hap, len(codes),
-                                                         window)
+            with trace.span("refine"):
+                window += 10
+                BAND_STATS["stat_rounds"] += 1
+                fin = self._stats_async(hap, len(codes), window)
+            total, diag, below = yield fin
             if total == 0:
                 break
         return window

@@ -22,6 +22,7 @@ import threading
 import zlib
 from typing import Dict, Iterator, List, Tuple
 
+from ..utils import trace
 from .bam import BAM_MAGIC, BamRecord, _parse_record
 
 BAI_MAGIC = b"BAI\x01"
@@ -229,6 +230,10 @@ class IndexedBam:
         """(payload, compressed_size) of the block at file offset."""
         if coffset in self._block_cache:
             return self._block_cache[coffset]
+        with trace.span("bam.inflate"):
+            return self._inflate_miss(coffset)
+
+    def _inflate_miss(self, coffset: int) -> Tuple[bytes, int]:
         with self._lock:
             self._fh.seek(coffset)
             head = self._fh.read(12)
@@ -250,6 +255,7 @@ class IndexedBam:
                 return b"", 0
             cdata = self._fh.read(bsize - 12 - xlen - 8)
         payload = zlib.decompress(cdata, wbits=-15)
+        trace.count("bam.blocks_inflated")
         self._block_cache[coffset] = (payload, bsize)
         if len(self._block_cache) > 512:
             self._block_cache.pop(next(iter(self._block_cache)))
@@ -320,9 +326,14 @@ class IndexedBam:
             while len(buf) < pos + 4 + block_size:
                 if not extend():
                     return
-            rec = _parse_record(buf, pos + 4)
+            with trace.span("bam.parse"):
+                rec = _parse_record(buf, pos + 4)
+            trace.count("bam.records_parsed")
             pos += 4 + block_size
             if rec.ref_id != rid or rec.pos0 >= end0:
                 return
-            if rec.end_pos0 > beg0 and rec.pos0 < end0:
+            # closed before the yield: the caller clips between yields
+            with trace.span("bam.overlap"):
+                hit = rec.end_pos0 > beg0 and rec.pos0 < end0
+            if hit:
                 yield rec

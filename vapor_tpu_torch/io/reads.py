@@ -10,6 +10,7 @@ import os
 from functools import lru_cache
 from typing import Dict, List
 
+from ..utils import trace
 from .bam import BamReader
 from .cigar import clip_read_to_window
 
@@ -67,8 +68,10 @@ def extract_spanning_reads(bam_path: str, chrom: str, start1: int, end1: int,
     out = []
     reader = _open_bam(bam_path)
     for rec in reader.fetch(chrom, start1, end1):
-        clipped = clip_read_to_window(
-            rec.seq, rec.cigar, rec.pos0 + 1, start1, end1, flank_length)
+        with trace.span("reads.clip"):
+            clipped = clip_read_to_window(
+                rec.seq, rec.cigar, rec.pos0 + 1, start1, end1,
+                flank_length)
         if clipped is not None:
             out.append([clipped[0], clipped[1], rec.name])
     return out

@@ -21,6 +21,15 @@ from __future__ import annotations
 
 from typing import Callable, Iterable, List
 
+from . import trace
+
+
+def _wait(fin):
+    """Resolves a finisher: a wait on the card, the launches of a flush
+    or a band-QC worker."""
+    with trace.span("pipeline.wait"):
+        return fin()
+
 
 def drain(gen):
     """Run a finisher-yielding generator to completion, resolving each
@@ -28,7 +37,7 @@ def drain(gen):
     try:
         fin = next(gen)
         while True:
-            fin = gen.send(fin())
+            fin = gen.send(_wait(fin))
     except StopIteration as stop:
         return stop.value
 
@@ -45,7 +54,9 @@ def run_pipelined(tasks: Iterable[Callable], emit: Callable,
     before any task takes a second step.  That way all in-flight
     events' device launches are issued before the scheduler blocks on
     the next round of results (depth-first advancement would serialize
-    one launch and one wait per event).
+    one launch and one wait per event).  Before each step, and before
+    each emit, it sets the recorder's event id (utils/trace.py) to the
+    task's index.
     """
     results = {}
     next_emit = 0
@@ -53,11 +64,13 @@ def run_pipelined(tasks: Iterable[Callable], emit: Callable,
     def flush():
         nonlocal next_emit
         while next_emit in results:
+            trace.set_event(next_emit)
             emit(*results.pop(next_emit))
             next_emit += 1
 
     if depth <= 1:
         for i, factory in enumerate(tasks):
+            trace.set_event(i)
             results[i] = drain(factory())
             flush()
         return
@@ -74,6 +87,7 @@ def run_pipelined(tasks: Iterable[Callable], emit: Callable,
                 exhausted = True
                 return
             i, factory = nxt
+            trace.set_event(i)
             gen = factory()
             try:
                 active.append([i, gen, next(gen)])
@@ -86,8 +100,9 @@ def run_pipelined(tasks: Iterable[Callable], emit: Callable,
         idx = 0
         while idx < len(active):
             i, gen, fin = active[idx]
+            trace.set_event(i)
             try:
-                active[idx][2] = gen.send(fin())
+                active[idx][2] = gen.send(_wait(fin))
                 idx += 1
             except StopIteration as stop:
                 active.pop(idx)

@@ -43,6 +43,7 @@ from .grammar.letters import (block_around_check, bp_to_chr_hash,
                               letter_split)
 from .io.fasta import FastaFile, reverse_complement
 from .io.reads import collect_event_reads
+from .utils import trace
 from .utils.coro import drain
 
 
@@ -91,14 +92,17 @@ class ValidatorContext:
     # -- primitives -------------------------------------------------------
 
     def fetch(self, chrom, start, end, revcomp: bool = False) -> str:
-        return self.fasta.fetch(chrom, int(start), int(end), revcomp=revcomp)
+        with trace.span("fetch"):
+            return self.fasta.fetch(chrom, int(start), int(end),
+                                    revcomp=revcomp)
 
     def reads(self, chrom, start, end, flank) -> List[List]:
         """Window read gather; region is [start+... ] 1-based via the
         reference's ``samtools view chrom:start-end`` call shape."""
-        return collect_event_reads(
-            self.bam_in, str(chrom), int(start), int(end), flank,
-            self.cfg.ideal_read_list_length)
+        with trace.span("reads"):
+            return collect_event_reads(
+                self.bam_in, str(chrom), int(start), int(end), flank,
+                self.cfg.ideal_read_list_length)
 
     def refine(self, seq: str) -> Optional[int]:
         return drain(self._refine_gen(seq))

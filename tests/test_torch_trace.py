@@ -188,8 +188,8 @@ def test_cli_writes_the_same_bytes_and_every_span(bed_case, recorder,
     real = bai._parse_record
 
     def counted(*a):
-        parsed.append(1)
-        return real(*a)
+        parsed.append(real(*a))
+        return parsed[-1]
 
     monkeypatch.setattr(bai, "_parse_record", counted)
     trace.enable()
@@ -209,6 +209,9 @@ def test_cli_writes_the_same_bytes_and_every_span(bed_case, recorder,
     assert {s[4] for s in spans if s[0] == "reads"} == set(range(5))
     assert snap["counts"]["bam.records_parsed"] == len(parsed) > 0
     assert snap["counts"]["bam.blocks_inflated"] >= 1
+    assert 0 < snap["counts"]["bam.records_header_only"] <= len(parsed)
+    assert 0 < snap["counts"]["reads.bases_decoded"] < sum(
+        r.l_seq for r in parsed)
     out = io.StringIO()
     trace.report(out)
     text = out.getvalue()

@@ -330,10 +330,15 @@ class IndexedBam:
                 rec = _parse_record(buf, pos + 4)
             trace.count("bam.records_parsed")
             pos += 4 + block_size
+            # settled from the header and the CIGAR words: a record that
+            # ends the scan or misses the window decodes nothing else
             if rec.ref_id != rid or rec.pos0 >= end0:
+                trace.count("bam.records_header_only")
                 return
             # closed before the yield: the caller clips between yields
             with trace.span("bam.overlap"):
-                hit = rec.end_pos0 > beg0 and rec.pos0 < end0
+                hit = rec.end_pos0 > beg0
             if hit:
                 yield rec
+            else:
+                trace.count("bam.records_header_only")

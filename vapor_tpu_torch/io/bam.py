@@ -22,46 +22,85 @@ from __future__ import annotations
 
 import struct
 import zlib
-from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+
+from ..utils import trace
+from .cigar import encode_cigar, ref_length, render_cigar
 
 BAM_MAGIC = b"BAM\x01"
-CIGAR_OPS = "MIDNSHP=X"
 SEQ_NIBBLE = "=ACMGRSVTWYHKDBN"
-_REF_CONSUMING = {"M", "D", "N", "=", "X"}
+# a packed byte's two bases as one little-endian uint16: high nibble first
+_NIBBLE_CODES = np.frombuffer(SEQ_NIBBLE.encode("ascii"), np.uint8)
+_SEQ_PAIRS = (_NIBBLE_CODES[np.arange(256) >> 4].astype("<u2") |
+              _NIBBLE_CODES[np.arange(256) & 0xF].astype("<u2") << 8)
 
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
 
-@dataclass
 class BamRecord:
-    name: str
-    flag: int
-    ref_id: int
-    pos0: int              # 0-based leftmost coordinate
-    mapq: int
-    cigar: str             # expanded text form, e.g. "10S90M2D100M"
-    seq: str
-    qual: bytes
+    """One alignment.  The CIGAR stays as BAM stores it, uint32 words
+    (``words``); a record parsed from a BAM (``_parse_record``) holds
+    its buffer and decodes name, bases and quality only when they are
+    read.  Built from text, as the simulators and the native codec's
+    queries build it, it encodes its CIGAR once."""
+
+    __slots__ = ("flag", "ref_id", "pos0", "mapq", "words", "l_seq",
+                 "_name", "_seq", "_qual", "_buf", "_p_name", "_l_name",
+                 "_p_seq")
+
+    def __init__(self, name: str, flag: int, ref_id: int, pos0: int,
+                 mapq: int, cigar: str, seq: str, qual: bytes):
+        self.flag, self.ref_id, self.pos0, self.mapq = \
+            flag, ref_id, pos0, mapq
+        self.words = encode_cigar(cigar)
+        self.l_seq = len(seq)
+        self._name, self._seq, self._qual = name, seq, qual
+        self._buf = None
 
     @property
-    def ref_length(self) -> int:
-        """Reference bases consumed by the alignment (for endpos)."""
-        total = 0
-        num = 0
-        for ch in self.cigar:
-            if ch.isdigit():
-                num = num * 10 + ord(ch) - 48
-            else:
-                if ch in _REF_CONSUMING:
-                    total += num
-                num = 0
-        return total
+    def name(self) -> str:
+        if self._buf is None:
+            return self._name
+        p = self._p_name
+        return self._buf[p:p + self._l_name - 1].decode("ascii")
+
+    @property
+    def cigar(self) -> str:
+        """Text form, e.g. "10S90M2D100M" ("*" for none)."""
+        return render_cigar(self.words)
+
+    @property
+    def seq(self) -> str:
+        return self.bases(0, self.l_seq)
+
+    @property
+    def qual(self) -> bytes:
+        if self._buf is None:
+            return self._qual
+        p = self._p_seq + (self.l_seq + 1) // 2
+        return self._buf[p:p + self.l_seq]
+
+    def bases(self, start: int, stop: int) -> str:
+        """Bases [start, stop), 0 <= start <= stop <= l_seq."""
+        if self._buf is None:
+            return self._seq[start:stop]
+        if start >= stop:
+            return ""
+        trace.count("reads.bases_decoded", stop - start)
+        lo = start >> 1
+        packed = np.frombuffer(self._buf, np.uint8,
+                               count=((stop + 1) >> 1) - lo,
+                               offset=self._p_seq + lo)
+        pairs = _SEQ_PAIRS[packed].tobytes()
+        return pairs[start & 1:(start & 1) + stop - start].decode("ascii")
 
     @property
     def end_pos0(self) -> int:
-        return self.pos0 + self.ref_length
+        """POS plus the reference bases the alignment consumes."""
+        return self.pos0 + ref_length(self.words)
 
 
 def _bgzf_blocks(data: bytes) -> Iterator[bytes]:
@@ -171,39 +210,21 @@ class BamReader:
                 yield rec
 
 
-_SEQ_NIB_LUT = None        # lazy: numpy byte LUT for 4-bit seq codes
-
-
 def _parse_record(data: bytes, off: int) -> BamRecord:
-    (ref_id, pos, l_read_name, mapq, _bin, n_cigar, flag, l_seq,
-     _nrid, _npos, _tlen) = struct.unpack_from("<iiBBHHHiiii", data, off)
+    """The record whose fields start at ``data[off]`` (after its
+    block_size): the fixed header and a view of the CIGAR words; name,
+    bases and quality stay in ``data`` until read."""
+    (ref_id, pos, l_read_name, mapq, _bin, n_cigar, flag,
+     l_seq) = struct.unpack_from("<iiBBHHHi", data, off)
+    rec = BamRecord.__new__(BamRecord)
+    rec.flag, rec.ref_id, rec.pos0, rec.mapq, rec.l_seq = \
+        flag, ref_id, pos, mapq, l_seq
     p = off + 32
-    name = data[p: p + l_read_name - 1].decode("ascii")
-    p += l_read_name
-    cigar_parts = []
-    for i in range(n_cigar):
-        v = struct.unpack_from("<I", data, p + 4 * i)[0]
-        cigar_parts.append(f"{v >> 4}{CIGAR_OPS[v & 0xF]}")
-    cigar = "".join(cigar_parts) if cigar_parts else "*"
-    p += 4 * n_cigar
-    nbytes = (l_seq + 1) // 2
-    # vectorized nibble decode: the per-base Python loop was the
-    # dominant host cost of BAI-chunk reads (~37 ms/event at 2.5 kb
-    # reads)
-    global _SEQ_NIB_LUT
-    import numpy as np
-    if _SEQ_NIB_LUT is None:
-        _SEQ_NIB_LUT = np.frombuffer(SEQ_NIBBLE.encode("ascii"),
-                                     dtype=np.uint8)
-    packed = np.frombuffer(data, np.uint8, count=nbytes, offset=p)
-    codes = np.empty(nbytes * 2, np.uint8)
-    codes[0::2] = packed >> 4
-    codes[1::2] = packed & 0xF
-    seq = _SEQ_NIB_LUT[codes[:l_seq]].tobytes().decode("ascii")
-    p += nbytes
-    qual = data[p: p + l_seq]
-    return BamRecord(name=name, flag=flag, ref_id=ref_id, pos0=pos,
-                     mapq=mapq, cigar=cigar, seq=seq, qual=qual)
+    rec.words = np.frombuffer(data, "<u4", count=n_cigar,
+                              offset=p + l_read_name)
+    rec._buf, rec._p_name, rec._l_name = data, p, l_read_name
+    rec._p_seq = p + l_read_name + 4 * n_cigar
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -219,18 +240,6 @@ def _bgzf_compress_block(payload: bytes) -> bytes:
     footer = struct.pack("<II", zlib.crc32(payload) & 0xFFFFFFFF,
                          len(payload))
     return header + cdata + footer
-
-
-def _encode_cigar(cigar: str) -> bytes:
-    out = b""
-    num = 0
-    for ch in cigar:
-        if ch.isdigit():
-            num = num * 10 + ord(ch) - 48
-        else:
-            out += struct.pack("<I", (num << 4) | CIGAR_OPS.index(ch))
-            num = 0
-    return out
 
 
 def _encode_seq(seq: str) -> bytes:
@@ -263,7 +272,7 @@ def write_bam(path: str, references: List[Tuple[str, int]],
     body = []
     for rec in records:
         nm = rec.name.encode("ascii") + b"\x00"
-        cig = _encode_cigar(rec.cigar) if rec.cigar != "*" else b""
+        cig = rec.words.tobytes()
         seqb = _encode_seq(rec.seq)
         qual = rec.qual if rec.qual else b"\xff" * len(rec.seq)
         payload = struct.pack(

@@ -69,9 +69,7 @@ def extract_spanning_reads(bam_path: str, chrom: str, start1: int, end1: int,
     reader = _open_bam(bam_path)
     for rec in reader.fetch(chrom, start1, end1):
         with trace.span("reads.clip"):
-            clipped = clip_read_to_window(
-                rec.seq, rec.cigar, rec.pos0 + 1, start1, end1,
-                flank_length)
+            clipped = clip_read_to_window(rec, start1, end1, flank_length)
         if clipped is not None:
             out.append([clipped[0], clipped[1], rec.name])
     return out

@@ -14,9 +14,16 @@ run would not have.  A rate is all the events of completed calls over
 the time from the window's start to the end of the last one.  Once the
 window has closed, the rows of sampled events are compared with the
 plain reference (``reference/``); the traced run (``--trace 1``)
-wraps the program's primitives in spans (``spans.py``) and runs
-torch.profiler over the window.  Each metric is read by the module of
-its name in ``metrics/``.
+wraps the program's primitives in spans (``spans.py``), turns the
+program's own recorder on (``program.py``) and runs torch.profiler over
+the window.  Each metric is read by the module of its name in
+``metrics/``.
+
+Every run prints to stderr, a line a call, what the host did in it (its
+wall, the harness's time before it, the CPU seconds of the process and
+of its main thread, context switches, major faults, gen-2 collections),
+and the time of a fixed pure-Python loop before and after the window:
+what a spread of the rate is traced to.
 """
 from __future__ import annotations
 
@@ -131,6 +138,47 @@ class Call:
     t1: float
     rc: int
     rows: Dict[str, List[str]] = field(default_factory=dict)
+    host: Dict[str, float] = field(default_factory=dict)
+
+
+class Gen2Timer:
+    """Seconds and count of the collector's gen-2 collections while it is
+    in gc.callbacks."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.count = 0
+        self._start = None
+
+    def __call__(self, phase: str, info: Dict) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._start = time.perf_counter()
+        elif self._start is not None:
+            self.seconds += time.perf_counter() - self._start
+            self.count += 1
+            self._start = None
+
+
+def host_sample(gen2: Gen2Timer) -> Dict[str, float]:
+    """This process's CPU seconds (every thread) and its main thread's,
+    context switches and major faults, and gen2's totals, now."""
+    u = resource.getrusage(resource.RUSAGE_SELF)
+    m = resource.getrusage(resource.RUSAGE_THREAD)
+    return {"cpu_s": u.ru_utime + u.ru_stime,
+            "main_cpu_s": m.ru_utime + m.ru_stime, "nvcsw": u.ru_nvcsw,
+            "nivcsw": u.ru_nivcsw, "majflt": u.ru_majflt,
+            "gc2_s": gen2.seconds, "gc2_n": gen2.count}
+
+
+def calibrate(n: int = 3_000_000) -> float:
+    """Seconds of a fixed pure-Python loop: the host's speed now."""
+    t = time.perf_counter()
+    s = 0
+    for i in range(n):
+        s += i & 7
+    return time.perf_counter() - t
 
 
 def _link(src: str, dst: str) -> str:
@@ -170,12 +218,15 @@ def _forget_readers() -> None:
 
 
 def one_call(cli, inputs, work: str, n: int, calls: str,
-             contigs: List[str], traffic: Dict, device: str) -> Call:
-    """One CLI call over the call set `calls`, through fresh links."""
+             contigs: List[str], traffic: Dict, device: str,
+             gen2: Optional[Gen2Timer] = None) -> Call:
+    """One CLI call over the call set `calls`, through fresh links; with
+    `gen2`, what the host did in it (host_sample's differences)."""
     dest = os.path.join(work, f"call{n}")
     paths = fresh_inputs(inputs, dest, calls)
     argv = cli_argv(inputs.mode, paths, dest, traffic, device)
     out = argv[argv.index("--output-file") + 1]
+    h0 = host_sample(gen2) if gen2 is not None else None
     t0 = time.perf_counter()
     try:
         rc = cli.main(argv)
@@ -183,14 +234,17 @@ def one_call(cli, inputs, work: str, n: int, calls: str,
         traceback.print_exc()
         rc = 1
     t1 = time.perf_counter()
+    host = {}
+    if h0 is not None:
+        host = {k: v - h0[k] for k, v in host_sample(gen2).items()}
     _forget_readers()
-    return Call(contigs, out, argv, t0, t1, rc)
+    return Call(contigs, out, argv, t0, t1, rc, host=host)
 
 
 def drive(cli, inputs, work: str, traffic: Dict, seconds: float,
-          device: str, first: int = 1) -> List[Call]:
+          device: str, gen2: Gen2Timer, first: int = 1) -> List[Call]:
     """Calls, one after another, until `seconds` have passed: a contig's
-    call set each, contigs in turn."""
+    call set each, contigs in turn, each with what the host did in it."""
     names = list(inputs.lengths)
     calls: List[Call] = []
     deadline = time.perf_counter() + seconds
@@ -198,7 +252,7 @@ def drive(cli, inputs, work: str, traffic: Dict, seconds: float,
     while time.perf_counter() < deadline:
         c = names[(n - first) % len(names)]
         calls.append(one_call(cli, inputs, work, n, inputs.per_contig[c],
-                              [c], traffic, device))
+                              [c], traffic, device, gen2))
         n += 1
     return calls
 
@@ -252,9 +306,13 @@ class Run:
     trace: bool
     spans: Dict[str, float] = field(default_factory=dict)
     bytes_bound: int = 0
+    bytes_by_route: Dict[str, int] = field(default_factory=dict)
     launches: Optional[int] = None
+    launches_by_kernel: Dict[str, int] = field(default_factory=dict)
+    launch_shapes: Dict[tuple, int] = field(default_factory=dict)
     device: Dict = field(default_factory=dict)
     peaks: Dict = field(default_factory=dict)
+    program: Dict = field(default_factory=dict)
 
 
 def host_rss_reset() -> bool:
@@ -299,6 +357,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _recorder():
+    """The program's recorder of spans and counters, or None where its
+    version has none (vapor_tpu_torch.utils.trace without enable)."""
+    try:
+        from vapor_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    return trace if hasattr(trace, "enable") else None
+
+
 def _measure(cell, inputs, work, seed, seconds, trace, device) -> Dict:
     import torch
     from vapor_tpu_torch import cli
@@ -314,38 +382,55 @@ def _measure(cell, inputs, work, seed, seconds, trace, device) -> Dict:
                         list(inputs.lengths)[:1], cell.traffic, device)
     if warm.rc != 0:
         raise RuntimeError(f"warm-up call exited {warm.rc}")
-    spans = prof = None
+    spans = prof = recorder = None
     if trace:
         spans = spans_mod.Spans()
         spans.install()
+        recorder = _recorder()
         if on_card:
             from torch.profiler import ProfilerActivity, profile
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
+    calib_before = calibrate()
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     gc.collect()
     host_rss_reset()
-    launches0 = sum(kernels.LAUNCHES.values())
+    launches0 = dict(kernels.LAUNCHES)
+    shapes0 = kernels.LAUNCH_SHAPES.copy()
+    gen2 = Gen2Timer()
+    gc.callbacks.append(gen2)
     offset_ns = time.time_ns() - time.perf_counter_ns()
+    if recorder is not None:
+        recorder.reset()
+        recorder.enable()
     t0 = time.perf_counter()
     setup_s = t0 - T_START
+    snap: Dict = {}
     try:
         with quiet_stdout():
-            calls = drive(cli, inputs, work, cell.traffic, seconds, device)
+            calls = drive(cli, inputs, work, cell.traffic, seconds, device,
+                          gen2)
     finally:
+        if recorder is not None:
+            snap = recorder.snapshot()
+            recorder.disable()
+            recorder.reset()
+        gc.callbacks.remove(gen2)
         if spans is not None:
             spans.remove()
     t_end = calls[-1].t1
     if on_card:
         torch.cuda.synchronize()
-    launches = sum(kernels.LAUNCHES.values()) - launches0
+    calib_after = calibrate()
+    by_kernel = {k: n - launches0.get(k, 0)
+                 for k, n in kernels.LAUNCHES.items()}
     dev = {}
     if prof is not None:
         prof.__exit__(None, None, None)
         dev = _device_summary(spans_mod.device_intervals(prof, offset_ns),
-                              spans.intervals, calls, t0, t_end)
+                              spans.intervals, calls, t0, t_end, snap)
         del prof
     rss = host_rss_peak_mib()
     device_info = {"platform": "cpu", "kind": "cpu", "count": 0,
@@ -358,11 +443,15 @@ def _measure(cell, inputs, work, seed, seconds, trace, device) -> Dict:
     for c in calls:
         c.rows = read_rows(c, inputs.mode)
     run = Run(setup_s, t_end - t0, sum(len(c.rows) for c in calls), calls,
-              rss, trace, launches=launches if trace else None, device=dev,
-              peaks=_peaks(cell.bench_dir))
+              rss, trace, device=dev, peaks=_peaks(cell.bench_dir),
+              program=snap)
     if spans is not None:
         run.spans = spans.span_totals()
-        run.bytes_bound = spans.bytes
+        run.bytes_by_route = dict(spans.bytes_by_route)
+        run.bytes_bound = sum(run.bytes_by_route.values())
+        run.launches = sum(by_kernel.values())
+        run.launches_by_kernel = by_kernel
+        run.launch_shapes = dict(kernels.LAUNCH_SHAPES - shapes0)
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -385,6 +474,8 @@ def _measure(cell, inputs, work, seed, seconds, trace, device) -> Dict:
     if trace and dev.get("breakdown"):
         result["breakdown"] = dev["breakdown"]
     result["check"] = numbers
+    for line in host_lines(calls, t0, calib_before, calib_after):
+        print(line, file=sys.stderr)
     print("window: " + " ".join(f"{c.t1 - c.t0:.3f}s/{len(c.rows)}"
                                 for c in calls), file=sys.stderr)
     for line in detail:
@@ -392,12 +483,46 @@ def _measure(cell, inputs, work, seed, seconds, trace, device) -> Dict:
     return result
 
 
+def host_lines(calls: List[Call], t0: float, calib_before: float,
+               calib_after: float) -> List[str]:
+    """A line a call of what the host did in it, and one for the run:
+    the calibration loop's seconds before and after the window, the sums
+    over the calls, the window and its rate of events."""
+    lines, prev, tot = [], t0, {}
+    for n, c in enumerate(calls, 1):
+        h = dict(c.host, wall_s=c.t1 - c.t0, before_s=c.t0 - prev)
+        prev = c.t1
+        for k, v in h.items():
+            tot[k] = tot.get(k, 0) + v
+        lines.append(f"call {n}: events {len(c.rows)} " + _host_text(h))
+    events = sum(len(c.rows) for c in calls)
+    window = calls[-1].t1 - t0 if calls else 0.0
+    rate = events / window if window > 0 else 0.0
+    lines.append(f"host: calibration before {calib_before:.4f} s after "
+                 f"{calib_after:.4f} s; calls {len(calls)} events "
+                 f"{events} " + _host_text(tot) +
+                 f" window_s {window:.4f} events_per_s {rate:.4f}")
+    return lines
+
+
+def _host_text(h: Dict[str, float]) -> str:
+    return " ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in h.items())
+
+
 def _peaks(bench_dir: str) -> Dict:
     with open(os.path.join(bench_dir, "peaks.json")) as fh:
         return json.load(fh)
 
 
-def _device_summary(intervals, host, calls, t0, t_end) -> Dict:
+def _device_summary(intervals, host, calls, t0, t_end,
+                    snap: Optional[Dict] = None) -> Dict:
+    """Busy seconds (their union), kernel seconds (copies and memsets
+    left out), every device op's seconds by name (`by_name`), the idle
+    seconds by the harness's spans and, where the program's recorder ran
+    (`snap`), by the program's innermost span (`idle_by_program`), and
+    the result line's breakdown: the ten busiest ops and idle causes."""
+    from .program import idle_by_program_span
     from .spans import idle_by_span, idle_gaps, union_length
     busy = union_length(intervals, t0, t_end)
     kernel_s = 0.0
@@ -413,6 +538,9 @@ def _device_summary(intervals, host, calls, t0, t_end) -> Dict:
     by_span = idle_by_span(gaps, host, [(c.t0, c.t1) for c in calls])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     idle = sorted(by_span.items(), key=lambda kv: -kv[1])[:10]
-    return {"busy_s": busy, "kernel_s": kernel_s,
-            "breakdown": {"device_ops": [[n, v] for n, v in top],
-                          "idle_gaps": [[n, v] for n, v in idle]}}
+    out = {"busy_s": busy, "kernel_s": kernel_s, "by_name": by_name,
+           "breakdown": {"device_ops": [[n, v] for n, v in top],
+                         "idle_gaps": [[n, v] for n, v in idle]}}
+    if snap and snap.get("spans") is not None:
+        out["idle_by_program"] = idle_by_program_span(gaps, snap)
+    return out

@@ -11,10 +11,13 @@ back.  Each span is kept in memory as (name, start, end) on the host's
 * ``dispatch`` - inside ``_score_async`` / ``score_del_batch_async``
 * ``wait``     - inside the finishers those two return
 
-and ``bytes`` counts, for every sequence handed to the scorers and to the
-window refiner, each haplotype and read byte once and one 8-byte score
-per (read, haplotype): the least traffic any implementation of the
-scoring has to move.
+and ``bytes_by_route`` counts, for every sequence handed to the scorers
+and to the window refiner, each haplotype and read byte once and one
+8-byte score per (read, haplotype): the least traffic any implementation
+of the scoring has to move.  Its routes are the scorer's mode (``m1b``,
+``w10``, ``rdd``: the scorer handed to ``_score_async``), ``del``
+(``score_del_batch_async``) and ``refiner``; their sum is the bound of
+every kernel together.
 """
 from __future__ import annotations
 
@@ -23,11 +26,16 @@ from collections import defaultdict
 from typing import List, Tuple
 
 
+# the scorer handed to ValidatorContext._score_async -> its route
+ROUTES = {"abs_dis_m1b": "m1b", "within_10perc_m1b": "w10",
+          "redefine_diagonal": "rdd"}
+
+
 class Spans:
     def __init__(self):
         self.intervals: List[Tuple[str, float, float]] = []
         self.totals = defaultdict(float)
-        self.bytes = 0
+        self.bytes_by_route = defaultdict(int)
         self.installed = set()
         self._saved = []
 
@@ -35,8 +43,9 @@ class Spans:
         self.intervals.append((name, t0, t1))
         self.totals[name] += t1 - t0
 
-    def _count(self, ref_seq: str, alt_seq: str, reads) -> None:
-        self.bytes += len(ref_seq) + len(alt_seq) + \
+    def _count(self, route: str, ref_seq: str, alt_seq: str,
+               reads) -> None:
+        self.bytes_by_route[route] += len(ref_seq) + len(alt_seq) + \
             sum(len(r[0]) for r in reads) + 16 * len(reads)
 
     def _timed(self, name: str, fn):
@@ -54,8 +63,7 @@ class Spans:
         spans = self
 
         def wrapper(*a, **kw):
-            ref_seq, alt_seq, reads = seqs(*a, **kw)
-            spans._count(ref_seq, alt_seq, reads)
+            spans._count(*seqs(*a, **kw))
             t0 = time.perf_counter()
             fin = fn(*a, **kw)
             spans._add("dispatch", t0, time.perf_counter())
@@ -73,7 +81,7 @@ class Spans:
         spans = self
 
         def wrapper(ctx, seq):
-            spans.bytes += len(seq) + 8
+            spans.bytes_by_route["refiner"] += len(seq) + 8
             return (yield from fn(ctx, seq))
         return wrapper
 
@@ -94,12 +102,13 @@ class Spans:
         self._patch(V, "fetch", lambda f: self._timed("fetch", f), "fetch")
         self._patch(V, "_score_async", lambda f: self._dispatcher(
             f, lambda ctx, scorer, ref, alt, reads, window:
-            (ref, alt, reads)), "dispatch", "wait")
+            (ROUTES.get(scorer, scorer), ref, alt, reads)),
+            "dispatch", "wait")
         self._patch(V, "_refine_gen", self._refiner)
         self._patch(FusedBackend, "score_del_batch_async",
                     lambda f: self._dispatcher(
                         f, lambda be, ref, alt, reads, window:
-                        (ref, alt, reads)), "dispatch", "wait")
+                        ("del", ref, alt, reads)), "dispatch", "wait")
 
     def span_totals(self):
         """Seconds in each installed span (0 for one that never ran)."""

@@ -1,4 +1,5 @@
 """The harness: driven by data, guarded, and fair to every call."""
+import gc
 import json
 import os
 import shutil
@@ -120,4 +121,72 @@ def test_traced_run_reads_spans_and_removes_them(tiny):
     assert m["read_gather_ms_per_event"]["value"] > 0
     assert m["cli_self_ms_per_event"]["value"] > 0
     assert "events_per_s" not in m
+    assert m["events_per_s_traced"]["value"] > 0
     assert dict(vars(ValidatorContext)) == before
+
+
+def test_every_per_layer_metric_moves_an_end_to_end_metric_of_its_cells():
+    """A per-layer metric names in `moves` an end-to-end metric that each
+    of its cells reports; events/s, steady in no cell, is per layer."""
+    with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
+        spec = json.load(fh)
+    cells = [w["name"] for w in spec["workloads"]]
+    e2e = {m["name"]: m.get("workloads", cells) for m in spec["end_to_end"]}
+    for m in spec["per_layer"]:
+        for cell in m.get("workloads", cells):
+            assert cell in e2e[m["moves"]], (m["name"], cell)
+    assert "events_per_s" not in e2e
+    assert "events_per_s_traced" in {m["name"] for m in spec["per_layer"]}
+
+
+def test_untraced_run_reports_the_end_to_end_metrics_alone(tiny):
+    load, _ = tiny
+    result = run_tiny(load("hg002_tier1.clr30x"))
+    assert result["correct"]
+    assert set(result["metrics"]) == {"peak_host_rss_mib", "setup_s"}
+
+
+def test_traced_rate_reads_the_window():
+    run = harness.Run(setup_s=1.0, window_s=2.0, events=10, calls=[],
+                      rss_mib=1.0, trace=True)
+    read = harness.load_reader(harness.BENCH, "events_per_s_traced")
+    assert read(run) == 5.0
+    run.window_s = 0.0
+    assert read(run) is None
+
+
+def test_host_lines_go_to_stderr_before_the_numbers_compared(tiny,
+                                                             capsys):
+    """A line a call of what the host did, and the calibration loop, on
+    stderr; the result keeps its keys and the check's lines come last."""
+    load, _ = tiny
+    result = run_tiny(load("hg002_tier1.clr30x"), seconds=2.0)
+    assert result["correct"]
+    err = capsys.readouterr().err.rstrip().splitlines()
+    calls = [line for line in err if line.startswith("call ")]
+    assert calls
+    for line in calls:
+        words = line.split()
+        keys = dict(zip(words[2::2], words[3::2]))
+        assert {"events", "wall_s", "before_s", "cpu_s", "main_cpu_s",
+                "nvcsw", "nivcsw", "majflt", "gc2_s", "gc2_n"} == set(keys)
+        assert float(keys["wall_s"]) > 0 and int(keys["events"]) == 3
+    host = [line for line in err if line.startswith("host: calibration")]
+    assert len(host) == 1 and f"calls {len(calls)} " in host[0]
+    assert float(host[0].split()[-1]) > 0          # the window's events/s
+    assert err[-1].startswith("check calls_failed")
+    assert set(result) == {"correct", "attempted", "failed", "metrics",
+                           "device", "check", "gen_s"}
+
+
+def test_gen2_timer_counts_full_collections_only():
+    timer = harness.Gen2Timer()
+    gc.callbacks.append(timer)
+    try:
+        gc.collect(0)
+        gc.collect(1)
+        assert timer.count == 0
+        gc.collect()
+        assert timer.count == 1 and timer.seconds > 0
+    finally:
+        gc.callbacks.remove(timer)

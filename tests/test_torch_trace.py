@@ -1,23 +1,34 @@
 """The port's recorder (vapor_tpu_torch/utils/trace.py): off by default,
 spans nested per thread with their parents, self time and event ids, no
-span across a pipeline yield, and the CLI's span sites on a bed run."""
+span across a pipeline yield, the CLI's span sites on a bed run, and the
+validators' spans and the scoring counters on a bed call set with
+junction-mode events and a tandem DUP past the largest bucket."""
 import io
 import os
 import threading
 
+import numpy as np
 import pytest
 
 from vapor_tpu_torch import cli
+from vapor_tpu_torch.engine.constants import HAP_BUCKETS
+from vapor_tpu_torch.grammar.letters import flank_length_calculate
 from vapor_tpu_torch.io import bai, reads as reads_mod
+from vapor_tpu_torch.sim import worklists
 from vapor_tpu_torch.sim.scale import build_scale_case
 from vapor_tpu_torch.utils import trace
 from vapor_tpu_torch.utils.coro import drain, run_pipelined
 
 # every span the program records, less batch.sync: it times
-# done.synchronize() on a CUDA event, which a CPU run never records
+# done.synchronize() on a CUDA event, which a CPU run never records (and
+# validate.ins: a bed run without INS calls)
 SPANS = {"reads", "bam.inflate", "bam.parse", "bam.overlap", "reads.clip",
          "fetch", "dispatch", "refine", "pipeline.wait", "batch.flush",
-         "emit", "cli.setup", "cli.finish"}
+         "emit", "cli.setup", "cli.finish", "validate.del", "validate.inv",
+         "validate.dup"}
+VALIDATE = ("validate.del", "validate.inv", "validate.dup", "validate.ins")
+# what the validators run between their yields
+CHILDREN = ("fetch", "reads", "refine", "dispatch")
 
 
 @pytest.fixture
@@ -57,6 +68,8 @@ def test_off_records_nothing():
         yield lambda: 1
 
     drain(gen())
+    g = gen()
+    assert trace.stepped("validate.del", g) is g
     snap = trace.snapshot()
     assert snap["spans"] == [] and snap["counts"] == {}
 
@@ -145,6 +158,37 @@ def test_pipeline_event_ids_and_no_span_across_a_yield(recorder, depth):
     assert _crossing(spans) == []
 
 
+@pytest.mark.parametrize("depth", [1, 3])
+def test_stepped_spans_each_stretch_between_yields(recorder, depth):
+    """One span for each stretch of the generator between its yields, the
+    spans of its body inside them, the pipeline's waits outside them, and
+    its return value passed on."""
+    def task(i):
+        def body():
+            for step in range(2):
+                with trace.span("inner"):
+                    fin = (lambda v=step: v)
+                got = yield fin
+                assert got == step
+            return i
+
+        def gen():
+            return (i, (yield from trace.stepped("validate.dup", body())))
+        return gen
+
+    emitted = []
+    run_pipelined([task(i) for i in range(4)],
+                  lambda *a: emitted.append(a), depth)
+    assert emitted == [(i, i) for i in range(4)]
+    spans = trace.snapshot()["spans"]
+    outer = [i for i, s in enumerate(spans) if s[0] == "validate.dup"]
+    assert len(outer) == 4 * 3          # two yields: three stretches
+    assert all(spans[i][3] in outer for i, s in enumerate(spans)
+               if s[0] == "inner")
+    assert all(s[3] == -1 for s in spans if s[0] == "pipeline.wait")
+    assert _crossing(spans) == []
+
+
 def test_crossing_finds_a_span_left_open_across_a_yield(recorder):
     def held(i):
         def gen():
@@ -219,3 +263,155 @@ def test_cli_writes_the_same_bytes_and_every_span(bed_case, recorder,
     assert "span reads " in text and " self=" in text
     assert f"count bam.records_parsed {len(parsed)}" in text
     assert "kernel hist launches=" in text
+
+
+# (svtype, body): whole-event DEL, INV and DUP, a DEL and a DUP of 10 kb
+# or more (junction mode), and a whole-event DUP whose alt haplotype,
+# 2 x body + 2 x flank, passes the largest bucket: its refiner step and
+# its reads go to the host
+JUNCTION_EVENTS = (("DEL", 700), ("INV", 900), ("DUP", 800),
+                   ("DEL", 12000), ("DUP", 11000), ("DUP", 8000))
+LONG_DUP = 5
+JUNCTION_READS = 6
+
+
+@pytest.fixture(scope="module")
+def junction_case(tmp_path_factory):
+    """ref.fa, reads.bam and svs.bed of JUNCTION_EVENTS on one contig,
+    JUNCTION_READS reads an event, half of them from the donor, and a
+    second bed without the long DUP."""
+    assert 2 * JUNCTION_EVENTS[LONG_DUP][1] + 2 * worklists.FLANK + 1 > \
+        HAP_BUCKETS[-1]
+    d = str(tmp_path_factory.mktemp("junction"))
+    rng = np.random.default_rng(23)
+    gap = 4000
+    length = gap + sum(b * (2 if t == "DUP" else 1) + gap
+                       for t, b in JUNCTION_EVENTS)
+    ref = rng.integers(0, 4, length).astype(np.uint8)
+    reads, rows, pos = [], [], gap
+    for i, (svtype, body) in enumerate(JUNCTION_EVENTS):
+        s0, e0 = pos, pos + body
+        pos = e0 + gap + (body if svtype == "DUP" else 0)
+        donor = worklists._donor(ref, svtype, s0, e0)
+        # whole-event mode reads through the event's right flank (a DUP's
+        # through s + 2 body + flank), junction mode around s (DEL) or
+        # e (DUP)
+        whole = body < 10000
+        span = (2 * body if svtype == "DUP" else body) if whole else 0
+        anchor = e0 if svtype == "DUP" and not whole else s0
+        read_len = span + 2 * worklists.FLANK + 1500
+        for r in range(JUNCTION_READS):
+            start = anchor - worklists.FLANK - int(rng.integers(200, 600))
+            from_donor = r % 2 == 0
+            template = (donor if from_donor else ref)[start:start + read_len]
+            seq, cigar = worklists.noisy_read(template, rng, 0.02)
+            reads.append((0, start, seq, f"{seq.size}M" if from_donor
+                          else cigar))
+        rows.append(f"chrE\t{s0}\t{e0}\tSV{i}\t{svtype}\n")
+    fa, bam = worklists._write(d, [ref], reads)
+    beds = {}
+    for name, keep in (("all", rows),
+                       ("short", rows[:LONG_DUP] + rows[LONG_DUP + 1:])):
+        beds[name] = os.path.join(d, name + ".bed")
+        with open(beds[name], "w") as fh:
+            fh.write("".join(keep))
+    return {"dir": d, "fasta": fa, "bam": bam, "beds": beds, "rows": rows}
+
+
+def _run_bed(case, bed, out):
+    """The bed CLI on `bed` through the batching backend, a fresh BAM
+    reader; returns the output's bytes."""
+    reads_mod._open_bam.cache_clear()
+    argv = ["bed", "--sv-input", bed, "--reference", case["fasta"],
+            "--pacbio-input", case["bam"], "--output-path",
+            os.path.join(case["dir"], "figs"), "--output-file", out,
+            "--device", "cpu", "--no-figures", "--pipeline", "3"]
+    assert cli.main(argv) == 0
+    with open(out, "rb") as fh:
+        return fh.read()
+
+
+def _kept(case, chrom, start, end, flank):
+    reads_mod._open_bam.cache_clear()
+    return len(reads_mod.collect_event_reads(case["bam"], chrom, start, end,
+                                             flank, 20))
+
+
+def test_bed_validators_spans_and_counters(junction_case, recorder):
+    """validate.* spans hold their validator's fetch, reads, refine and
+    dispatch and never a pipeline wait or another event's work; the rdd
+    route's rows are the whole-event DUPs' kept reads on two haplotypes;
+    the junction-mode events are counted; the host scores only the long
+    DUP's reads and refines only its alt haplotype; the rows equal those
+    of a run with the recorder off."""
+    case = junction_case
+    trace.disable()
+    off = _run_bed(case, case["beds"]["all"],
+                   os.path.join(case["dir"], "off.vapor"))
+    trace.enable()
+    on = _run_bed(case, case["beds"]["all"],
+                  os.path.join(case["dir"], "on.vapor"))
+    trace.disable()
+    assert on == off
+    assert off.count(b"\nchrE\t") == len(JUNCTION_EVENTS)
+    assert b"\tNA\t" not in off           # every event scored
+    snap = trace.snapshot()
+    spans, counts = snap["spans"], snap["counts"]
+    names = {s[0] for s in spans}
+    assert {"validate.del", "validate.inv", "validate.dup"} <= names
+    assert "validate.ins" not in names
+    assert _crossing(spans) == []
+    for i, s in enumerate(spans):
+        up = [a[0] for a in _ancestors(spans, i)]
+        if s[0] in VALIDATE or s[0] == "pipeline.wait":
+            assert not set(up) & set(VALIDATE + ("pipeline.wait",)), s
+        elif s[0] in CHILDREN:
+            assert set(up) & set(VALIDATE), s
+    dups = [(int(r.split()[1]), int(r.split()[2])) for r in case["rows"]
+            if r.split()[4] == "DUP"]
+    device_dups = [(s, e) for s, e in dups if e - s < 10000 and
+                   2 * (e - s) + 2 * flank_length_calculate(["", s, e]) + 1
+                   <= HAP_BUCKETS[-1]]
+    assert len(device_dups) == 1
+    rows = 0
+    for s, e in device_dups:
+        f = flank_length_calculate(["chrE", s, e])
+        rows += 2 * _kept(case, "chrE", s - f, s + 2 * (e - s) + f, f)
+    assert counts["score.rows.rdd"] == rows > 0
+    assert counts["validate.junction"] == 2
+    s, e = dups[-1]
+    f = flank_length_calculate(["chrE", s, e])
+    assert counts["score.host_reads"] == _kept(
+        case, "chrE", s - f, s + 2 * (e - s) + f, f) > 0
+    assert counts["refine.host"] == 1
+    assert {"score.rows.del", "score.rows.w10"} <= set(counts)
+    assert "score.rows.m1b" in counts          # the whole-event INV
+
+    trace.reset()
+    trace.enable()
+    short = _run_bed(case, case["beds"]["short"],
+                     os.path.join(case["dir"], "short.vapor"))
+    trace.disable()
+    counts = trace.snapshot()["counts"]
+    assert "score.host_reads" not in counts and "refine.host" not in counts
+    assert counts["score.rows.rdd"] == rows
+    assert sorted(short.splitlines()) == sorted(
+        line for line in off.splitlines() if b"\tSV5\t" not in line)
+
+
+def test_vcf_validators_spans_keep_the_golden(tmp_path, recorder):
+    """vcf mode steps its DEL, INV and INS validators under their spans
+    (tandem DUPs emit no row there), and its rows stay the golden's."""
+    from vapor_tpu_torch.sim import goldens
+    reads_mod._open_bam.cache_clear()
+    got = goldens.run_golden("vcf_all_types", str(tmp_path), device="cpu")
+    trace.disable()
+    assert got == goldens.golden_text("vcf_all_types")
+    spans = trace.snapshot()["spans"]
+    names = {s[0] for s in spans}
+    assert {"validate.del", "validate.inv", "validate.ins"} <= names
+    assert "validate.dup" not in names
+    assert _crossing(spans) == []
+    for i, s in enumerate(spans):
+        if s[0] in VALIDATE:
+            assert not {a[0] for a in _ancestors(spans, i)} & set(VALIDATE)

@@ -247,30 +247,34 @@ def plan_bed(args, ctx: ValidatorContext, num_reads_cff: int,
         def task(x=x):
             if x[-1] in ("a/", "/a", "/", "DEL"):
                 key = ":".join([str(i) for i in x[:-3]] + ["DEL"])
-                scores = yield from ctx.validate_del_gen(
-                    num_reads_cff, x[:-3],
-                    out_path + sample + ".DEL." + key.replace(":", "__")
-                    + "." + fig_ext)
+                scores = yield from trace.stepped(
+                    "validate.del", ctx.validate_del_gen(
+                        num_reads_cff, x[:-3],
+                        out_path + sample + ".DEL."
+                        + key.replace(":", "__") + "." + fig_ext))
             elif x[-1] in ("a/a^", "a^/a", "a^/a^", "INV"):
                 key = ":".join([str(i) for i in x[:-3]] + ["INV"])
-                scores = yield from ctx.validate_inv_gen(
-                    num_reads_cff, x[:-3],
-                    out_path + sample + ".INV." + key.replace(":", "__")
-                    + "." + fig_ext)
+                scores = yield from trace.stepped(
+                    "validate.inv", ctx.validate_inv_gen(
+                        num_reads_cff, x[:-3],
+                        out_path + sample + ".INV."
+                        + key.replace(":", "__") + "." + fig_ext))
             elif x[-1] == "INS":
                 key = ":".join([str(i) for i in x[:-3] + ["INS"]])
                 ins_pos = "_".join(str(i) for i in x[:2])
                 ins_seq = "X" * x[4] if isinstance(x[4], int) else x[4]
-                scores = yield from ctx.validate_ins_gen(
-                    num_reads_cff, ins_pos, ins_seq, "+",
-                    out_path + sample + ".INS." + key.replace(":", "__")
-                    + "." + fig_ext)
+                scores = yield from trace.stepped(
+                    "validate.ins", ctx.validate_ins_gen(
+                        num_reads_cff, ins_pos, ins_seq, "+",
+                        out_path + sample + ".INS."
+                        + key.replace(":", "__") + "." + fig_ext))
             elif x[-1] in ("a/aa", "aa/a", "aa/aa", "DUP", "TANDUP"):
                 key = ":".join([str(i) for i in x[:-3]] + ["TANDUP"])
-                scores = yield from ctx.validate_tandup_gen(
-                    num_reads_cff, x[:-3],
-                    out_path + sample + ".TANDUP."
-                    + key.replace(":", "__") + "." + fig_ext)
+                scores = yield from trace.stepped(
+                    "validate.dup", ctx.validate_tandup_gen(
+                        num_reads_cff, x[:-3],
+                        out_path + sample + ".TANDUP."
+                        + key.replace(":", "__") + "." + fig_ext))
             else:
                 print(x)
                 return None, None, None
@@ -331,8 +335,9 @@ def plan_vcf(args, ctx: ValidatorContext, num_reads_cff: int):
                     key = ":".join([str(i) for i in y] + ["DEL"])
                     if y[2] - y[1] < DEFAULT_CONFIG.min_sv_span:
                         return key, []
-                    return key, (yield from ctx.validate_del_gen(
-                        num_reads_cff, y, fig("DEL", key)))
+                    return key, (yield from trace.stepped(
+                        "validate.del", ctx.validate_del_gen(
+                            num_reads_cff, y, fig("DEL", key))))
                 if sv_type == "INV":
                     if y[2] - y[1] < DEFAULT_CONFIG.min_sv_span:
                         # the reference labels the sub-50 INV NA row DEL
@@ -340,8 +345,9 @@ def plan_vcf(args, ctx: ValidatorContext, num_reads_cff: int):
                         return ":".join([str(i) for i in y]
                                         + ["DEL"]), []
                     key = ":".join([str(i) for i in y] + ["INV"])
-                    return key, (yield from ctx.validate_inv_gen(
-                        num_reads_cff, y, fig("INV", key)))
+                    return key, (yield from trace.stepped(
+                        "validate.inv", ctx.validate_inv_gen(
+                            num_reads_cff, y, fig("INV", key))))
                 if sv_type == "INS":
                     key = ":".join([str(i) for i in y[:3] + ["INS"]])
                     ins_pos = "_".join(str(i) for i in y[:2])
@@ -350,9 +356,10 @@ def plan_vcf(args, ctx: ValidatorContext, num_reads_cff: int):
                     # without SEQ= gets an *empty* insert sequence
                     # (flank 0 -> NA), never the X-run fallback
                     ins_seq = y[-1] if len(y) == 4 else "X" * y[2]
-                    return key, (yield from ctx.validate_ins_gen(
-                        num_reads_cff, ins_pos, ins_seq, "+",
-                        fig("INS", key)))
+                    return key, (yield from trace.stepped(
+                        "validate.ins", ctx.validate_ins_gen(
+                            num_reads_cff, ins_pos, ins_seq, "+",
+                            fig("INS", key))))
                 if sv_type == "DISDUP":
                     key = ":".join([str(i) for i in y] + ["DISDUP"])
                     return key, (yield from ctx.validate_disdup_gen(
@@ -369,8 +376,9 @@ def plan_vcf(args, ctx: ValidatorContext, num_reads_cff: int):
                 if sv_type == "TANDUP":
                     if args.validate_vcf_tandup:
                         key = ":".join([str(i) for i in y] + ["TANDUP"])
-                        return key, (yield from ctx.validate_tandup_gen(
-                            num_reads_cff, y, fig("TANDUP", key)))
+                        return key, (yield from trace.stepped(
+                            "validate.dup", ctx.validate_tandup_gen(
+                                num_reads_cff, y, fig("TANDUP", key))))
                     # reference quirk: the VCF flow has no TANDUP
                     # branch (vapor:387-465); DUP/tandup records are
                     # parsed but never validated and emit no row

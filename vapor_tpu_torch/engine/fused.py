@@ -150,10 +150,12 @@ def fused_batch(haps, reads, rlens, ms, k_idx: int, H: int, R: int,
     the histograms are then not returned: no scoring path reads them);
     on one device this is fused_batch_local.  Per-row math is
     integer-exact, so the packed rows are bit-identical either way.
+    The rows count as ``score.rows.<scorer>`` (utils/trace.py).
     -> (h_d, h_a, packed)."""
     if tuple(haps.shape[1:]) != (H,) or tuple(reads.shape[1:]) != (R,):
         raise ValueError(f"want (B, {H}) haps and (B, {R}) reads, got "
                          f"{tuple(haps.shape)} and {tuple(reads.shape)}")
+    trace.count("score.rows." + scorer, reads.shape[0])
     packed = maybe_mesh_rows(haps, reads, rlens, ms, k_idx, H, R, scorer,
                              hap_index=hap_index)
     if packed is not None:
@@ -295,6 +297,7 @@ class FusedBackend:
             H_a = bucket_for(len(alt_m1b) + 1)
             r_groups = self._read_groups(reads)
         except ValueError:
+            trace.count("score.host_reads", len(reads))
             out = ([oracle.SCORERS["abs_dis_m1b"](
                         ref_seq, alt_seq, r[0], r[1], window)
                     for r in reads],
@@ -310,6 +313,7 @@ class FusedBackend:
         if not (all(VOCAB_OK[h].all() for h in haps)
                 and all(VOCAB_OK[enc[0]].all()
                         for _, enc in encs)):
+            trace.count("score.host_reads", len(reads))
             out = ([oracle.SCORERS["abs_dis_m1b"](
                         ref_seq, alt_seq, r[0], r[1], window)
                     for r in reads],
@@ -404,6 +408,7 @@ class FusedBackend:
         if not reads:
             return lambda: []
         if scorer in ("abs_dis_m1", "abs_dis_m2"):
+            trace.count("score.host_reads", len(reads))
             out = [oracle.SCORERS[scorer](ref_seq, alt_seq, r[0], r[1],
                                           window) for r in reads]
             return lambda: out
@@ -417,6 +422,7 @@ class FusedBackend:
             H_a = bucket_for(len(alt_s) + 1)
             r_groups = self._read_groups(reads)
         except ValueError:
+            trace.count("score.host_reads", len(reads))
             out = [oracle.SCORERS[scorer](ref_seq, alt_seq, r[0], r[1],
                                           window) for r in reads]
             return lambda: out
@@ -429,6 +435,7 @@ class FusedBackend:
         if not (VOCAB_OK[hr].all() and VOCAB_OK[ha].all()
                 and all(VOCAB_OK[enc[0]].all()
                         for _, enc in encs)):
+            trace.count("score.host_reads", len(reads))
             out = [oracle.SCORERS[scorer](ref_seq, alt_seq, r[0], r[1],
                                           window) for r in reads]
             return lambda: out

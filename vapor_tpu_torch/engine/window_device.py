@@ -105,10 +105,12 @@ class DeviceWindowRefiner:
                 H = bucket_for(len(seq) + 1)
             except ValueError:
                 BAND_STATS["unbucketable_host_refines"] += 1
+                trace.count("refine.host")
                 return _host_refine(seq, self.region_qc_cff, self.seed)
             codes = oracle.encode(seq)
             if not VOCAB_OK[codes].all():
                 BAND_STATS["vocab_host_refines"] += 1
+                trace.count("refine.host")
                 return _host_refine(seq, self.region_qc_cff, self.seed)
             hap = np.full(H, HAP_PAD, dtype=np.uint8)
             hap[: len(codes)] = codes

@@ -19,7 +19,8 @@ still open at ``snapshot`` has ``t1_ns`` None.
 
 No span stays open across a ``yield`` of a validator or refiner
 generator: the pipeline steps other events between yields, and such a
-span would time their work.
+span would time their work.  ``stepped`` times a whole generator that
+way, one span for each stretch between its yields.
 """
 from __future__ import annotations
 
@@ -110,6 +111,28 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return run
     return wrap
+
+
+def stepped(name: str, gen):
+    """`gen`, a generator of finishers (utils/coro.py), with each
+    stretch of it between two yields timed as a span of `name`: the span
+    closes before each yield, so the waits that the pipeline resolves in
+    between stay outside it.  With the recorder off, `gen` itself (the
+    recorder is checked here, once a generator)."""
+    if not _on:
+        return gen
+    return _stepped(name, gen)
+
+
+def _stepped(name: str, gen):
+    value = None
+    while True:
+        with span(name):
+            try:
+                fin = gen.send(value)
+            except StopIteration as stop:
+                return stop.value
+        value = yield fin
 
 
 def count(name: str, n: int = 1) -> None:

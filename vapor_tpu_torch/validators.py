@@ -230,6 +230,7 @@ class ValidatorContext:
                         self.fetch(chrom, e, e + flank)
                     w = yield from self._refine_gen(alt_seq)
                     if w is not None:
+                        trace.count("validate.junction")
                         raw = yield self._score_async(
                             "within_10perc_m1b", ref_seq, alt_seq,
                             reads, w)
@@ -270,6 +271,7 @@ class ValidatorContext:
             if w is not None:
                 reads = self.reads(chrom, s - flank, s + flank, flank)
                 if len(reads) > num_reads_cff:
+                    trace.count("validate.junction")
                     raw = yield self._score_async(
                         "within_10perc_m1b", ref_seq, alt_seq, reads, w)
                     self._accumulate(raw, reads, scores, state)
@@ -310,6 +312,7 @@ class ValidatorContext:
             if w is not None:
                 reads = self.reads(chrom, e - flank, e + flank, flank)
                 if len(reads) > num_reads_cff:
+                    trace.count("validate.junction")
                     raw = yield self._score_async(
                         "within_10perc_m1b", ref_seq, alt_seq, reads, w)
                     self._accumulate(raw, reads, scores, state)

@@ -1,7 +1,6 @@
 """Events validated and written by the traced window's completed CLI
 calls, over the time from the window's start to the end of the last
-one: the rate of metrics/events_per_s.py, read in the traced run, with
-the spans, the program's recorder and the profiler on."""
+one, with the spans, the program's recorder and the profiler on."""
 
 
 def read(run):

@@ -15,10 +15,12 @@ if REPO not in sys.path:
 
 from benchmarks import harness  # noqa: E402
 
-# A bed-mode configuration for the CPU tests alone: the generator and
-# the reference know every type of both input modes (DEL, INS, INV,
-# tandem DUP, junction mode), so that a configuration of the benchmark
-# is a data file; no cell of BENCHMARK.json runs bed mode yet.
+# A bed-mode configuration for the CPU tests alone, beside the bed cell
+# of BENCHMARK.json (na12878_1kgp.clr30x): the generator and the
+# reference know every type of both input modes (DEL, INS, INV, tandem
+# DUP, junction mode), so that a configuration of the benchmark is a
+# data file, and this one puts an INV, a DUP and junction mode in a
+# run of a few events.
 BED = "bed_tiny.clr30x"
 BED_CONFIG = {"name": "bed_tiny", "mode": "bed",
               "types": {"DEL": 0.34, "INV": 0.33, "DUP": 0.33},

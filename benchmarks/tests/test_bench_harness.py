@@ -139,6 +139,21 @@ def test_every_per_layer_metric_moves_an_end_to_end_metric_of_its_cells():
     assert "events_per_s_traced" in {m["name"] for m in spec["per_layer"]}
 
 
+def test_every_metric_of_the_vcf_cell_is_read_in_the_bed_cell():
+    """Each per-layer metric that lists hg002_tier1.clr30x lists
+    na12878_1kgp.clr30x too: the read-gather split, the launch, wait and
+    self-time spans, the kernels and the device's idle share all have
+    something to read in a bed-mode traced run."""
+    with open(os.path.join(REPO, "BENCHMARK.json")) as fh:
+        spec = json.load(fh)
+    listed = [m for m in spec["per_layer"]
+              if "hg002_tier1.clr30x" in m["workloads"]]
+    assert len(listed) == 24
+    for m in listed:
+        assert m["workloads"] == ["hg002_tier1.clr30x",
+                                  "na12878_1kgp.clr30x"], m["name"]
+
+
 def test_untraced_run_reports_the_end_to_end_metrics_alone(tiny):
     load, _ = tiny
     result = run_tiny(load("hg002_tier1.clr30x"))

@@ -121,6 +121,18 @@ def test_traced_tiny_run_reads_the_six_metrics(tiny16, monkeypatch):
         / 0.006)
 
 
+def test_traced_tiny_run_reads_every_metric_listing_the_cell(tiny16,
+                                                            monkeypatch):
+    """Every per-layer metric that lists the cell reads something in its
+    traced run: on the CPU all but those of the device's trace."""
+    result, _ = _traced(tiny16, monkeypatch)
+    spec = _spec()
+    listed = {m["name"] for m in spec["per_layer"]
+              if CELL in m["workloads"] and m["source"] != "device_trace"}
+    assert len(listed) == 24
+    assert set(result["metrics"]) == listed
+
+
 def test_program_without_the_new_sites_reads_nothing(tiny16, monkeypatch):
     """The parent's program: its recorder runs, but no validate.* span and
     no counter of the rows, the junction windows or the host's scoring;

@@ -2,10 +2,14 @@
 spans nested per thread with their parents, self time and event ids, no
 span across a pipeline yield, the CLI's span sites on a bed run, and the
 validators' spans and the scoring counters on a bed call set with
-junction-mode events and a tandem DUP past the largest bucket."""
+junction-mode events and a tandem DUP past the largest bucket; and the
+memory readings: /proc status and smaps parsed, readings kept across
+reset and bounded, each once-per-process label read once, the CLI's,
+the kernel loader's and the first launch's sites."""
 import io
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -415,3 +419,262 @@ def test_vcf_validators_spans_keep_the_golden(tmp_path, recorder):
     for i, s in enumerate(spans):
         if s[0] in VALIDATE:
             assert not {a[0] for a in _ancestors(spans, i)} & set(VALIDATE)
+
+
+# ---------------------------------------------------------------------------
+# memory readings
+# ---------------------------------------------------------------------------
+
+STATUS = """Name:\tpython3
+VmPeak:\t 9000000 kB
+VmHWM:\t 5100000 kB
+VmRSS:\t 4983000 kB
+RssAnon:\t 1200000 kB
+RssFile:\t 3700000 kB
+RssShmem:\t   83000 kB
+VmSwap:\t       0 kB
+"""
+
+
+@pytest.fixture
+def memory(monkeypatch):
+    """The recorder's memory readings emptied for the test alone."""
+    monkeypatch.setattr(trace, "_mem_first", {})
+    monkeypatch.setattr(trace, "_mem_recent",
+                        trace.collections.deque(maxlen=trace.MEMORY_KEEP))
+    monkeypatch.setattr(trace, "_by_path", None)
+    monkeypatch.setattr(trace, "_by_path_due", False)
+    return trace
+
+
+def _labels(readings):
+    return [r["label"] for r in readings]
+
+
+def test_parse_status_reads_the_five_fields():
+    assert trace.parse_status(STATUS) == {
+        "VmRSS": 4983000, "VmHWM": 5100000, "RssAnon": 1200000,
+        "RssFile": 3700000, "RssShmem": 83000}
+
+
+def test_parse_status_gives_none_for_a_field_not_shown():
+    """A kernel older than the Rss* split shows VmRSS and VmHWM alone:
+    the three components are None, not 0."""
+    old = "\n".join(line for line in STATUS.splitlines()
+                    if not line.startswith("Rss"))
+    assert trace.parse_status(old) == {
+        "VmRSS": 4983000, "VmHWM": 5100000, "RssAnon": None,
+        "RssFile": None, "RssShmem": None}
+    assert trace.parse_status("") == dict.fromkeys(trace.STATUS_FIELDS)
+
+
+def test_a_reading_of_this_process(memory):
+    trace.memory("x")
+    (r,) = trace.memory_readings()
+    assert r["label"] == "x" and r["t_ns"] <= time.perf_counter_ns()
+    assert r["split_from"] == "status"
+    assert r["VmRSS"] > 0 and r["VmHWM"] >= r["VmRSS"]
+    assert abs(r["RssAnon"] + r["RssFile"] + r["RssShmem"] - r["VmRSS"]) \
+        <= 0.02 * r["VmRSS"]
+    assert r["maxrss_kb"] >= r["VmRSS"]
+    assert r["pinned_bytes"] is None             # CUDA never initialised
+
+
+def test_readings_survive_reset_and_stay_bounded(memory):
+    """Readings are taken with the recorder off, reset() leaves them, the
+    first of each label stays, and 10,000 calls keep MEMORY_KEEP more."""
+    trace.disable()
+    trace.memory("import", once=True)
+    trace.memory("kernel.load.hist.enter", once=True)
+    trace.memory("kernel.load.hist.exit", once=True)
+    for _ in range(10_000):
+        trace.memory("call.enter")
+        trace.memory("call.exit")
+        trace.memory("import", once=True)
+        trace.memory("kernel.load.hist.enter", once=True)
+    trace.reset()
+    got = trace.snapshot()["memory"]
+    assert len(got) == 5 + trace.MEMORY_KEEP
+    labels = _labels(got)
+    assert labels[:5] == ["import", "kernel.load.hist.enter",
+                          "kernel.load.hist.exit", "call.enter",
+                          "call.exit"]
+    assert labels.count("import") == 1
+    assert labels.count("kernel.load.hist.enter") == 1
+    assert labels[-2:] == ["call.enter", "call.exit"]
+    t = [r["t_ns"] for r in got]
+    assert t == sorted(t)
+
+
+def test_distinct_labels_past_the_kept_limit_stay_bounded(memory):
+    for n in range(1000):
+        trace.memory(f"kernel.first.k{n}.enter", once=True)
+    assert len(trace.memory_readings()) == trace._KEPT_MAX
+
+
+def test_each_once_label_fires_once_across_threads(memory):
+    threads = [threading.Thread(target=lambda: [
+        trace.memory("kernel.first.hist.enter", once=True)
+        for _ in range(50)]) for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(10)
+    assert _labels(trace.memory_readings()) == ["kernel.first.hist.enter"]
+
+
+SMAPS = """55d0c0000000-55d0c0021000 r--p 00000000 08:01 1234 /usr/bin/python3
+Size:                132 kB
+Rss:                 100 kB
+Pss:                 100 kB
+VmFlags: rd mr mw me dw
+7f0000000000-7f0000100000 rw-p 00000000 00:00 0
+Size:               1024 kB
+Rss:                1000 kB
+7f0000200000-7f0000300000 r-xp 00000000 08:01 99 /usr/lib/libcuda.so.1
+Rss:                2000 kB
+7f0000300000-7f0000400000 r--p 00100000 08:01 99 /usr/lib/libcuda.so.1
+Rss:                  50 kB
+7f0000500000-7f0000600000 rw-p 00000000 00:00 0   [heap]
+Rss:                 300 kB
+7f0000600000-7f0000700000 rw-s 00000000 00:05 7   /dev/shm/a b (deleted)
+Rss:                  20 kB
+"""
+
+
+def test_parse_smaps_and_the_status_split_from_it():
+    maps = trace.parse_smaps(SMAPS.splitlines(True))
+    assert maps == [["/usr/bin/python3", 100, 0], ["[anon]", 1000, 0],
+                    ["/usr/lib/libcuda.so.1", 2000, 0],
+                    ["/usr/lib/libcuda.so.1", 50, 0], ["[heap]", 300, 0],
+                    ["/dev/shm/a b (deleted)", 20, 0]]
+    maps[0][2] = 40                     # copied-on-write pages of a file
+    maps[1][2], maps[4][2] = 1000, 300
+    assert trace.split_of(maps) == {"RssAnon": 1340, "RssFile": 2110,
+                                    "RssShmem": 20}
+
+
+def test_split_from_smaps_where_the_status_lacks_it(memory, monkeypatch):
+    """A kernel whose status shows no Rss* split: the first import,
+    call.enter and call.exit take it from smaps, once each; later ones
+    and the kernels' readings keep None."""
+    bare = "\n".join(line for line in STATUS.splitlines()
+                     if not line.startswith("Rss"))
+    monkeypatch.setattr(trace, "_status",
+                        lambda: trace.parse_status(bare))
+    reads = []
+    monkeypatch.setattr(trace, "_smaps", lambda: reads.append(1) or [
+        ["[heap]", 300, 300], ["/lib/a.so", 2000, 10],
+        ["/dev/nvidiactl", 64, 0]])
+    for label in ("import", "call.enter", "kernel.load.hist.enter",
+                  "call.exit", "call.enter", "call.exit"):
+        trace.memory(label)
+    got = trace.memory_readings()
+    assert len(reads) == 3
+    assert [r["split_from"] for r in got] == ["smaps", "smaps", None,
+                                              "smaps", None, None]
+    assert {k: got[0][k] for k in ("RssAnon", "RssFile", "RssShmem")} == \
+        {"RssAnon": 310, "RssFile": 1990, "RssShmem": 64}
+    assert got[-1]["RssAnon"] is None and got[-1]["VmRSS"] == 4983000
+
+
+def test_memory_by_path_once_after_enable(memory, monkeypatch, tmp_path):
+    """Off: nothing.  The first call after enable() keeps the TOP_PATHS
+    largest paths and the rest as "other"; a second call reads nothing
+    until the next enable(); a missing smaps is recorded as None."""
+    trace.memory_by_path()
+    assert trace.memory_readings() == []
+    smaps = "".join(
+        f"7f{n:010x}-7f{n + 1:010x} r--p 0 08:01 {n} /lib/l{n}.so\n"
+        f"Rss: {n + 1} kB\n" for n in range(20))
+    path = tmp_path / "smaps"
+    path.write_text(smaps)
+    real_open = open
+
+    def fake_open(name, *a, **kw):
+        if name == "/proc/self/smaps":
+            return real_open(path, *a, **kw)
+        return real_open(name, *a, **kw)
+    monkeypatch.setattr("builtins.open", fake_open)
+    trace.enable()
+    try:
+        trace.memory_by_path()
+        trace.memory_by_path()
+        (r,) = trace.memory_readings()
+        assert r["label"] == "smaps"
+        top = r["rss_by_path_kb"]
+        assert top[:trace.TOP_PATHS] == [[f"/lib/l{n}.so", n + 1]
+                                         for n in range(19, 7, -1)]
+        assert top[-1] == ["other", sum(range(1, 9))]
+        path.unlink()
+        trace.enable()
+        trace.memory_by_path()
+        (r,) = trace.memory_readings()
+        assert r["rss_by_path_kb"] is None
+    finally:
+        trace.disable()
+
+
+def test_cli_call_takes_its_readings_and_the_report_prints_them(
+        memory, tmp_path):
+    """cli.main reads at entry and at exit, also where it returns early;
+    the report prints every reading."""
+    missing = str(tmp_path / "none.fa")
+    for _ in range(2):
+        assert cli.main(["bed", "--sv-input", missing, "--reference",
+                         missing, "--pacbio-input", missing,
+                         "--output-path", str(tmp_path), "--device",
+                         "cpu"]) == 2
+    assert _labels(trace.memory_readings()) == ["call.enter", "call.exit"] * 2
+    trace.memory("import", once=True)
+    out = io.StringIO()
+    trace.report(out)
+    lines = [x for x in out.getvalue().splitlines()
+             if x.startswith("memory ")]
+    assert len(lines) == 5 and "pinned=-" in lines[0]
+    assert "VmRSS=" in lines[-1] and "maxrss_kb=" in lines[-1]
+
+
+def test_kernel_load_and_first_launch_read_once(memory, monkeypatch,
+                                                tmp_path):
+    """A library's load is read around its first ctypes.CDLL, once
+    however many of its symbols are bound; an entry point's first call
+    around that call, once."""
+    import ctypes
+
+    import torch
+
+    from vapor_tpu_torch.engine import kernels
+    from vapor_tpu_torch.engine.kernels import build
+    lib = tmp_path / "fake.so"
+    lib.write_bytes(b"")
+    loads = []
+
+    class Lib:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, symbol):
+            return lambda *a: 0
+    monkeypatch.setattr(build, "library_path", lambda name: str(lib))
+    monkeypatch.setattr(ctypes, "CDLL", Lib)
+    monkeypatch.setattr(build, "_loaded", {})
+    build.entry_point("hist")
+    build.entry_point("hist", "selfstats")
+    assert loads == [str(lib)] * 2
+    assert _labels(trace.memory_readings()) == ["kernel.load.hist.enter",
+                                                "kernel.load.hist.exit"]
+    monkeypatch.setattr(kernels, "_ENTRY", {})
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(kernels.LAUNCHES))
+    monkeypatch.setattr(kernels, "LAUNCH_SHAPES", kernels.Counter())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    x = torch.zeros(1)
+    for _ in range(3):
+        kernels._launch_glue("intercept_z", (8, 8), x)
+        kernels._launch("hist", x, x, x, x, x, 1, 8, 8, route="selfstats")
+    assert _labels(trace.memory_readings())[2:] == [
+        "kernel.load.intercept_z.enter", "kernel.load.intercept_z.exit",
+        "kernel.first.intercept_z.enter", "kernel.first.intercept_z.exit",
+        "kernel.first.hist_self.enter", "kernel.first.hist_self.exit"]
+    assert kernels.LAUNCHES["hist"] == kernels.LAUNCHES["intercept_z"] == 3

@@ -468,6 +468,15 @@ def plan_svelter(args, ctx: ValidatorContext, num_reads_cff: int):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    trace.memory("call.enter")
+    trace.memory_by_path()
+    try:
+        return _main(argv)
+    finally:
+        trace.memory("call.exit")
+
+
+def _main(argv: Optional[List[str]]) -> int:
     args = build_parser().parse_args(argv)
     # multi-process execution: under torchrun (WORLD_SIZE > 1) join the
     # gloo process group, take a contig-granular worklist shard on this
@@ -552,6 +561,9 @@ def _run(args) -> int:
         finish()
     return 0
 
+
+# before the port makes any CUDA call
+trace.memory("import", once=True)
 
 if __name__ == "__main__":
     sys.exit(main())

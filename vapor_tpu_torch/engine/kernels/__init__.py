@@ -54,6 +54,7 @@ import torch
 
 from .. import oracle
 from ..constants import HAP_PAD, NIB_LUT, READ_PAD, hist_width
+from ...utils import trace
 from . import build
 
 # the six dot-plot kernels
@@ -142,8 +143,10 @@ def _launch(name: str, ch: torch.Tensor, *args,
     the C entry point gets ch, then args = (cf, cd, ms, rlens, B, H, R,
     ...), tensors as their data pointers."""
     fn = _ENTRY.get((name, route))
-    if fn is None:
+    bound = fn is None
+    if bound:
         fn = _ENTRY[name, route] = build.entry_point(name, route)
+        _first_reading(ROUTES[name, route], "enter")
     index = ch.get_device()
     # the raw stream handle, as torch.cuda.current_stream(index)
     # .cuda_stream gives it, without building a Stream object
@@ -151,6 +154,8 @@ def _launch(name: str, ch: torch.Tensor, *args,
              *[a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in args],
              index, torch._C._cuda_getCurrentRawStream(index))
+    if bound:
+        _first_reading(ROUTES[name, route], "exit")
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -164,17 +169,27 @@ def _launch_glue(name: str, shape: Tuple[int, int], first: torch.Tensor,
     (None as a null pointer).  The launch counts under (name, "glue",
     *shape)."""
     fn = _ENTRY.get((name, "glue"))
-    if fn is None:
+    bound = fn is None
+    if bound:
         fn = _ENTRY[name, "glue"] = build.entry_point(name, "glue")
+        _first_reading(name, "enter")
     index = first.get_device()
     err = fn(first.data_ptr(),
              *[a.data_ptr() if isinstance(a, torch.Tensor) else a
                for a in args],
              index, torch._C._cuda_getCurrentRawStream(index))
+    if bound:
+        _first_reading(name, "exit")
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, "glue", *shape)] += 1
+
+
+def _first_reading(wrapper: str, edge: str) -> None:
+    """The memory reading at entry to or exit from the first call of a C
+    entry point in this process, where its library loads its module."""
+    trace.memory(f"kernel.first.{wrapper}.{edge}", once=True)
 
 
 def _glue_shape(W: int, H: int, R: int) -> Tuple[int, int]:

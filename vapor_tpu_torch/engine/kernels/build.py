@@ -16,6 +16,8 @@ import subprocess
 import threading
 from typing import Dict, Iterable, Tuple
 
+from ...utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -120,7 +122,12 @@ def _function(name: str, symbol: str, argtypes):
             path = library_path(name)
             if not os.path.exists(path):
                 build([name])
-            fn = getattr(ctypes.CDLL(path), symbol)
+            # the first CDLL of a library loads it; a later one of the
+            # same path takes the same handle
+            trace.memory(f"kernel.load.{name}.enter", once=True)
+            lib = ctypes.CDLL(path)
+            trace.memory(f"kernel.load.{name}.exit", once=True)
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[symbol] = fn

@@ -21,10 +21,30 @@ No span stays open across a ``yield`` of a validator or refiner
 generator: the pipeline steps other events between yields, and such a
 span would time their work.  ``stepped`` times a whole generator that
 way, one span for each stretch between its yields.
+
+Memory readings (``memory``) are taken whether or not the recorder is
+on, at a bounded number of sites: once when the CLI module has been
+imported, at entry to and exit from each ``cli.main``, around each
+kernel library's load and each C entry point's first call.  A reading is
+a dict of its label, ``perf_counter_ns``, the kB of ``VmRSS``,
+``VmHWM``, ``RssAnon``, ``RssFile`` and ``RssShmem`` from
+``/proc/self/status`` (None for a field the kernel does not show; the
+first ``import``, ``call.enter`` and ``call.exit`` take the three
+``Rss*`` from ``/proc/self/smaps`` instead), the
+process's peak resident kB since its start (``maxrss_kb``, getrusage's
+``ru_maxrss``: the peak where the kernel keeps no ``VmHWM``) and the
+bytes torch's caching host allocator holds (``pinned_bytes``; None
+before CUDA is initialised).  The first reading of each label is kept
+for the process, later ones among the ``MEMORY_KEEP`` most recent;
+``reset`` leaves them all, so set-up's readings reach the window's
+snapshot.  The first ``cli.main`` after ``enable`` also reads the
+resident kB by mapped path (``memory_by_path``).
 """
 from __future__ import annotations
 
+import collections
 import functools
+import resource
 import sys
 import threading
 import time
@@ -36,6 +56,19 @@ _COUNTS: Dict[str, int] = {}
 # guards the slot a span takes in _SPANS, and the counters
 _lock = threading.Lock()
 _clock_at_enable: Optional[Tuple[int, int]] = None
+
+STATUS_FIELDS = ("VmRSS", "VmHWM", "RssAnon", "RssFile", "RssShmem")
+MEMORY_KEEP = 384           # later readings kept, the most recent
+_KEPT_MAX = 128             # labels whose first reading is kept
+TOP_PATHS = 12              # mappings memory_by_path names
+# labels whose first reading takes RssAnon, RssFile and RssShmem from
+# smaps where the status does not show them: one read each a process,
+# none inside the warm-up call's kernel loads
+SPLIT_LABELS = ("import", "call.enter", "call.exit")
+_mem_first: Dict[str, Dict] = {}
+_mem_recent: collections.deque = collections.deque(maxlen=MEMORY_KEEP)
+_by_path: Optional[Dict] = None
+_by_path_due = False
 
 
 class _Thread(threading.local):
@@ -154,8 +187,9 @@ def _clock() -> Tuple[int, int]:
 
 
 def enable() -> None:
-    global _on, _clock_at_enable
+    global _on, _clock_at_enable, _by_path_due
     _clock_at_enable = _clock()
+    _by_path_due = True
     _on = True
 
 
@@ -172,17 +206,151 @@ def reset() -> None:
         _COUNTS.clear()
 
 
+def parse_status(text: str) -> Dict[str, Optional[int]]:
+    """The kB of each of STATUS_FIELDS in the text of /proc/<pid>/status,
+    None for a field it does not show."""
+    out: Dict[str, Optional[int]] = dict.fromkeys(STATUS_FIELDS)
+    for line in text.splitlines():
+        key, _, rest = line.partition(":")
+        if key in out:
+            out[key] = int(rest.split()[0])
+    return out
+
+
+def _status() -> Dict[str, Optional[int]]:
+    try:
+        with open("/proc/self/status") as fh:
+            return parse_status(fh.read())
+    except OSError:
+        return dict.fromkeys(STATUS_FIELDS)
+
+
+def _pinned_bytes() -> Optional[int]:
+    """Bytes torch's caching host allocator holds (in use and cached),
+    where this process has initialised CUDA; else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    stats_of = getattr(torch.cuda, "host_memory_stats", None)
+    if stats_of is None:
+        return None
+    stats = stats_of()
+    # reserved_bytes up to torch 2.11; from 2.13 allocated_bytes counts
+    # the blocks the allocator holds, cached ones included
+    for key in ("reserved_bytes.current", "allocated_bytes.current"):
+        if key in stats:
+            return int(stats[key])
+    return None
+
+
+def memory(label: str, once: bool = False) -> None:
+    """Takes a memory reading `label`, the recorder on or off; with
+    `once`, only where no reading of `label` was taken before.  Its
+    ``split_from`` says where RssAnon, RssFile and RssShmem came from:
+    "status", "smaps" (the first reading of a label of SPLIT_LABELS,
+    where the status does not show them) or None."""
+    if once and label in _mem_first:
+        return
+    t = time.perf_counter_ns()
+    status = _status()
+    split_from = "status" if status["RssAnon"] is not None else None
+    if split_from is None and label in SPLIT_LABELS and \
+            label not in _mem_first:
+        maps = _smaps()
+        if maps is not None:
+            status.update(split_of(maps))
+            split_from = "smaps"
+    reading = {"label": label, "t_ns": t, **status,
+               "split_from": split_from,
+               "maxrss_kb": resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss,
+               "pinned_bytes": _pinned_bytes()}
+    with _lock:
+        if label not in _mem_first and len(_mem_first) < _KEPT_MAX:
+            _mem_first[label] = reading
+        elif not once:
+            _mem_recent.append(reading)
+
+
+def parse_smaps(lines) -> List[List]:
+    """[path, resident kB, anonymous kB] of each mapping in the lines of
+    /proc/<pid>/smaps; an anonymous mapping's path is "[anon]"."""
+    maps: List[List] = []
+    for line in lines:
+        head, _, rest = line.partition(" ")
+        if not head.endswith(":"):          # a mapping's first line
+            fields = line.split(None, 5)
+            maps.append([fields[5].strip() if len(fields) > 5
+                         else "[anon]", 0, 0])
+        elif maps and head == "Rss:":
+            maps[-1][1] = int(rest.split()[0])
+        elif maps and head == "Anonymous:":
+            maps[-1][2] = int(rest.split()[0])
+    return maps
+
+
+def split_of(maps) -> Dict[str, int]:
+    """RssAnon, RssFile and RssShmem in kB from smaps' mappings, as
+    Linux's status counts them: the anonymous pages; the rest of each
+    mapping of a file outside /dev; the rest of every other mapping
+    (shared memory, devices)."""
+    anon = sum(m[2] for m in maps)
+    file = sum(m[1] - m[2] for m in maps
+               if m[0].startswith("/") and not m[0].startswith("/dev/"))
+    return {"RssAnon": anon, "RssFile": file,
+            "RssShmem": sum(m[1] for m in maps) - anon - file}
+
+
+def _smaps() -> Optional[List[List]]:
+    try:
+        with open("/proc/self/smaps") as fh:
+            return parse_smaps(fh)
+    except OSError:
+        return None
+
+
+def memory_by_path() -> None:
+    """At the first call after enable(), with the recorder on: the
+    resident kB of the TOP_PATHS largest mapped paths and of the rest
+    ("other"), from /proc/self/smaps; None where that file is missing."""
+    global _by_path, _by_path_due
+    if not (_on and _by_path_due):
+        return
+    _by_path_due = False
+    t = time.perf_counter_ns()
+    maps = _smaps()
+    top = None
+    if maps is not None:
+        kb: Dict[str, int] = {}
+        for path, rss, _ in maps:
+            kb[path] = kb.get(path, 0) + rss
+        ranked = sorted(kb.items(), key=lambda kv: -kv[1])
+        top = [list(kv) for kv in ranked[:TOP_PATHS]]
+        top.append(["other", sum(v for _, v in ranked[TOP_PATHS:])])
+    _by_path = {"label": "smaps", "t_ns": t, "rss_by_path_kb": top}
+
+
+def memory_readings() -> List[Dict]:
+    """Every kept memory reading, in the order taken."""
+    with _lock:
+        out = [*_mem_first.values(), *_mem_recent]
+    if _by_path is not None:
+        out.append(_by_path)
+    return sorted(out, key=lambda r: r["t_ns"])
+
+
 def snapshot() -> Dict:
-    """The spans and counters so far, the id of the main thread, and
+    """The spans and counters so far, the id of the main thread,
     (time.time_ns(), perf_counter_ns()) at enable and now: the pair a
     reader maps Unix-time stamps (Kineto's) onto this clock with, and
-    checks the mapping for drift."""
+    checks the mapping for drift; and the memory readings."""
     with _lock:
         spans, counts = list(_SPANS), dict(_COUNTS)
     return {"spans": spans, "counts": counts,
             "main_thread": threading.main_thread().ident,
             "clock_at_enable": _clock_at_enable,
-            "clock_at_snapshot": _clock()}
+            "clock_at_snapshot": _clock(),
+            "memory": memory_readings()}
 
 
 def self_times(spans) -> List[int]:
@@ -197,8 +365,8 @@ def self_times(spans) -> List[int]:
 
 def report(file=None) -> None:
     """The ``--trace`` report: each span name's count, total and self
-    seconds, the counters, each kernel's launches and the window
-    refiner's tallies."""
+    seconds, the counters, each kernel's launches, the window refiner's
+    tallies and the memory readings (MiB)."""
     from ..engine import kernels
     from ..engine.window_device import BAND_STATS
     file = file or sys.stderr
@@ -225,3 +393,16 @@ def report(file=None) -> None:
     for name in kernels.ALL_NAMES:
         print(f"kernel {name} launches={kernels.LAUNCHES[name]}",
               file=file)
+    for r in snap["memory"]:
+        if "rss_by_path_kb" in r:
+            for path, kb in r["rss_by_path_kb"] or [["(no smaps)", 0]]:
+                print(f"memory smaps {kb / 1024:10.1f} MiB {path}",
+                      file=file)
+            continue
+        vals = " ".join(
+            f"{k}=-" if r[k] is None else f"{k}={r[k] / 1024:.1f}"
+            for k in (*STATUS_FIELDS, "maxrss_kb"))
+        pinned = "-" if r["pinned_bytes"] is None else \
+            f"{r['pinned_bytes'] / 2 ** 20:.1f}"
+        print(f"memory {r['label']} t={r['t_ns'] / 1e9:.6f}s {vals} "
+              f"pinned={pinned}", file=file)
